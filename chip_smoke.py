@@ -1,0 +1,458 @@
+"""Smoke run of the PyTorch/CUDA port (``trajopt_tpu_torch``) on one card.
+
+Phases, each of which must pass:
+
+1. the card: its name and power limit, the torch/CUDA versions and the
+   TF32 settings (all off);
+2. build the hand-written kernel ``csrc/admm_block_chunk.cu`` with nvcc;
+3. hold the kernel against its plain PyTorch version at the flagship QP
+   shapes (T 30, D 8, K 2, R 40, B 256, 150 iterations), on seeded data
+   with hard, penalty and inert padded rows and one lane with a planted
+   NaN, and on the main path's first QP; time both versions on the latter
+   and compute the bound;
+4. a small pr2ish problem (10 steps, 3 lanes) on the card (float32,
+   kernel) against the CPU (plain version): one QP step (convexify,
+   prepare, 450 ADMM iterations) against float64, and a whole solve
+   against float32;
+5. the main path: the flagship cast solve (pr2ish, 30 steps, LVS 2,
+   B = 256 lanes) through ``pr2ish_table_problem`` /
+   ``TrajOptProblem.make_solve``, then the independent swept check of
+   every lane; the kernel's launch count over that solve; a profiled
+   repeat for the device's idle share.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+The last line of standard output is ``{"ok": true, "device": ...}``; the
+line before it lists the kernels with their launches, errors and times.
+Exits non-zero, printing no result line, on any failure and when no CUDA
+device is present.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from trajopt_tpu_torch.models.benchmarks import (pr2ish_table_batch,
+                                                 pr2ish_table_problem,
+                                                 swept_verify)
+from trajopt_tpu_torch.qp import block_banded as bb
+from trajopt_tpu_torch.qp import fused_block as fb
+from trajopt_tpu_torch.qp.admm import ADMMConfig
+from trajopt_tpu_torch.qp.admm_block import (chunk_operands,
+                                             prepare_qp_block,
+                                             solve_qp_block_prepared)
+from trajopt_tpu_torch.sqp import nlp as nlp_mod
+from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+from trajopt_tpu_torch.sqp.solver import block_qp, make_solver
+
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+T, D, K, R, B, N_ITERS = 30, 8, 2, 40, 256, 150
+# Kernel vs plain version, both float32 on the same inputs: they sum in
+# another order (warp shuffles and shared-memory loops against batched
+# GEMM and tensor reductions), and over 150 iterations the rounding grows
+# past what a fixed relative bound can state -- the dual residual is a
+# difference of terms ~20x its size.  So both are held against the plain
+# version in float64 on the same (float32) inputs: the kernel's distance
+# to it may be at most CHUNK_NOISE times the float32 plain version's own
+# distance, plus CHUNK_FLOOR of the quantity's magnitude.
+CHUNK_NOISE = 4.0
+CHUNK_FLOOR = 1e-6
+# Card (float32, kernel) against CPU (float64, plain version) on one small
+# QP step: float32 convexification (inputs rounded at ~1e-7) and 450 ADMM
+# iterations of float32 rounding, which the kernel check above measures at
+# ~1e-4 of the state's magnitude per 150 iterations; 1e-3 of the
+# solution's magnitude allows for that and still flags any wrong update.
+SMALL_XTOL = 1e-3
+# Card against CPU on a whole float32 solve (10 steps, 3 lanes): equal
+# status and counts, and x within the bound the CPU test holds the port's
+# float32 solve to against the JAX package's (two float32 solves summing
+# in another order over 2 SQP steps and up to 900 ADMM iterations, on
+# trajectories of magnitude ~2).
+SOLVE_XTOL = 1e-4
+MIN_VERIFIED = 243          # of 256 lanes: 95 %
+
+
+def flagship_params() -> SQPParams:
+    """The JAX flagship's ``__graft_entry__._solver_params("cast")``."""
+    return dataclasses.replace(
+        SQPParams(), max_restarts=1,
+        qp=ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
+                      check_every=150, adaptive_rho=False,
+                      rho_dual_scale=0.1, ruiz_iters=10, ns_refresh=True,
+                      ns_tol=1e-4, ns_power_iters=4))
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    print(f"TF32: matmul {tf32[0]}, cudnn {tf32[1]}, float32 matmul "
+          f"precision {tf32[2]!r}")
+    if tf32 != (False, False, "highest"):
+        raise SystemExit("TF32 must be off")
+    return smi
+
+
+def phase_build():
+    t0 = time.time()
+    fb.build(verbose=True)
+    print(f"built {fb.SOURCE.name} for sm_90a in {time.time() - t0:.1f} s")
+
+
+def chunk_inputs(seed: int, dev):
+    """Seeded QP data at the flagship shapes, built in float64: an SPD
+    P, the x-update matrix M = P + sigma I + C'R C + rho_b diag(b^2) and
+    its inverse, 32 weighted rows per step (4 hard, c = inf, two of them
+    equalities with rho 100; 28 finite penalty rows, half of them
+    equalities) and 8 inert padded rows (W = 0, l = -inf, u = +inf,
+    c = 0), no rows past step T - K.  Returns (args, kw, live rows) for
+    ``fb.chunk_*`` with args in float32."""
+    rng = np.random.default_rng(seed)
+    n, m, KD = T * D, T * R, K * D
+    f64 = dict(dtype=torch.float64, device=dev)
+    slot = np.arange(R)[None, :]
+    live = np.zeros((T, R), bool)
+    live[:T - K + 1, :32] = True
+    Wb = rng.standard_normal((B, T, R, KD)) * live[None, :, :, None]
+    hard = (live & (slot < 4)).reshape(-1)
+    eq = (live & (slot % 2 == 0)).reshape(-1)
+    live = live.reshape(-1)
+    bnd = rng.standard_normal((B, m))
+    lc = np.where(eq, bnd, -np.inf)
+    uc = np.where(live, bnd, np.inf)
+    c = np.where(hard, np.inf,
+                 np.where(live, rng.uniform(1, 50, (B, m)), 0.0))
+    rho_c = np.broadcast_to(np.where(hard & eq, 100.0, 0.1), (B, m)).copy()
+    cr = np.where(np.isinf(c), np.inf, c / rho_c)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = A @ A.transpose(0, 2, 1) + np.eye(n)
+    bd = rng.uniform(0.5, 1.5, (B, n))
+    sigma, alpha, rho_b = 1e-6, 1.6, 0.1
+    Wt = torch.as_tensor(Wb, **f64)
+    C = bb.BlockBanded(Wb=Wt, plan=bb.BlockPlan(
+        T=T, D=D, K=K, R=R, m=0, w=KD, blk_index=np.zeros(0, np.int64),
+        scatter_idx=np.zeros(0, np.int64)))
+    M = (torch.as_tensor(P, **f64) + sigma * torch.eye(n, **f64)
+         + bb.at_r_a(C, torch.as_tensor(rho_c, **f64))
+         + torch.diag_embed(torch.as_tensor(rho_b * bd * bd, **f64)))
+    Minv = torch.linalg.inv(M)
+    x = torch.as_tensor(rng.standard_normal((B, n)) * 0.1, **f64)
+    yc = torch.as_tensor(rng.standard_normal((B, m)) * 0.01 * live, **f64)
+    q = torch.as_tensor(rng.standard_normal((B, n)), **f64)
+    q[7, 5] = float("nan")                      # the planted-NaN lane
+    f = [Minv, Wt, torch.as_tensor(P, **f64), q,
+         torch.as_tensor(lc, **f64), torch.as_tensor(uc, **f64),
+         torch.as_tensor(cr, **f64), torch.as_tensor(rho_c, **f64),
+         torch.as_tensor(-rng.uniform(0.1, 1, (B, n)), **f64),
+         torch.as_tensor(rng.uniform(0.1, 1, (B, n)), **f64),
+         torch.as_tensor(bd, **f64),
+         torch.as_tensor(rng.uniform(0.5, 2, (B, m)), **f64),
+         torch.as_tensor(rng.uniform(0.5, 2, (B, n)), **f64),
+         torch.as_tensor(rng.uniform(0.5, 2, (B, n)), **f64),
+         torch.as_tensor(rng.uniform(0.5, 2, (B,)), **f64),
+         x, bb.matvec_wb(Wt, x, D), torch.as_tensor(bd, **f64) * x, yc,
+         torch.zeros(B, n, **f64)]
+    args = [t.to(torch.float32).contiguous() for t in f]
+    kw = dict(D=D, sigma=sigma, alpha=alpha, rho_b=rho_b, n_iters=N_ITERS)
+    return args, kw, live
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def first_qp(n_steps: int, lanes: int, seed: int, dev):
+    """The main path's first QP for a pr2ish problem (LVS 2) on ``lanes``
+    seeded lanes: convexified at the straight-line inits with the initial
+    merit coefficients, equilibrated and factored as the solver does.
+    Returns (prepared QP, trust-box lb, ub (0.1 around x), x)."""
+    prob, _ = pr2ish_table_problem(n_steps=n_steps, lvs_substeps=2,
+                                   device=dev)
+    nlp = prob.build()
+    inits, goals = pr2ish_table_batch(seed, lanes, n_steps, device=dev)
+    x = inits.reshape(lanes, -1)
+    params = {"goal": goals}
+    lb, ub = prob.bounds(x)
+    model = nlp_mod.convexify_structured(
+        nlp, x, params, nlp_mod.linear_jacobians(nlp, x, params))
+    plan = bb.make_plan(*nlp_mod.structured_band(nlp), *nlp.block)
+    coeffs = x.new_full((lanes, nlp_mod.num_cnt_groups(nlp)), 10.0)
+    prep = prepare_qp_block(block_qp(nlp, plan, model, coeffs, x),
+                            flagship_params().qp)
+    return (prep, torch.maximum(lb, x - 0.1), torch.minimum(ub, x + 0.1),
+            x)
+
+
+def hold_chunk(label: str, args, kw):
+    """Kernel and float32 plain version against the float64 plain version
+    on the same float32 inputs; prints, per quantity, its magnitude and
+    each one's absolute and relative error.  Returns (kernel outputs,
+    max |kernel - float32 plain|)."""
+    (st_k, stats_k) = fb.chunk_cuda(*args, **kw)
+    (st_p, stats_p) = fb.chunk_plain(*args, **kw)
+    (st_r, stats_r) = fb.chunk_plain(*[a.double() for a in args], **kw)
+    torch.cuda.synchronize()
+    names = ("x", "zc", "zb", "yc", "yb", "pri", "dua", "ax_n", "z_n",
+             "pAty_n")
+    max_abs = 0.0
+    for name, a, b, r in zip(names, (*st_k, *stats_k), (*st_p, *stats_p),
+                             (*st_r, *stats_r)):
+        if not (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.isnan(a), torch.isnan(r))):
+            raise SystemExit(f"{label}: NaN pattern of {name} differs "
+                             f"between kernel and plain")
+        ok = ~torch.isnan(r)
+        r = r[ok]
+        mag = float(r.abs().max())
+        err = float((a[ok] - b[ok]).abs().max())
+        err_k = float((a[ok].double() - r).abs().max())
+        err_p = float((b[ok].double() - r).abs().max())
+        tol = CHUNK_NOISE * err_p + CHUNK_FLOOR * mag
+        rel = max(mag, 1e-30)
+        print(f"{label} {name:6s}: max |r| {mag:.3e}; against float64: "
+              f"kernel {err_k:.3e} (rel {err_k / rel:.2e}), float32 plain "
+              f"{err_p:.3e} (rel {err_p / rel:.2e}), tolerance {tol:.3e}; "
+              f"max |kernel - plain| {err:.3e}")
+        if not err_k <= tol:
+            raise SystemExit(f"{label}: kernel disagrees with plain on "
+                             f"{name}: {err_k:.3e} > {tol:.3e}")
+        max_abs = max(max_abs, err)
+    return (st_k, stats_k), max_abs
+
+
+def phase_kernel_check(dev) -> dict:
+    args, kw, live = chunk_inputs(0, dev)
+    (st_k, stats_k), err_syn = hold_chunk("seeded", args, kw)
+    nan_lane = 7
+    if not (torch.isnan(stats_k.pri[nan_lane])
+            and torch.isnan(stats_k.dua[nan_lane])):
+        raise SystemExit("the planted NaN did not reach pri/dua: a blown-up "
+                         "QP would read as converged")
+    others = torch.arange(B, device=dev) != nan_lane
+    if torch.isnan(torch.stack(stats_k)[:, others]).any():
+        raise SystemExit("NaN leaked into other lanes")
+    pad = torch.as_tensor(~live, device=dev)
+    if (st_k[1][others][:, pad] != 0).any() or \
+            (st_k[3][others][:, pad] != 0).any():
+        raise SystemExit("padded inert rows moved")
+    print(f"planted NaN lane {nan_lane}: pri {float(stats_k.pri[nan_lane])}, "
+          f"dua {float(stats_k.dua[nan_lane])} (not converged, as in JAX); "
+          f"padded rows stay 0")
+
+    consts, state = chunk_operands(*first_qp(T, B, 0, dev))
+    args = [t.contiguous() for t in (*consts, *state)]
+    cfg = flagship_params().qp
+    kw = dict(D=D, sigma=cfg.sigma, alpha=cfg.alpha, rho_b=cfg.rho,
+              n_iters=cfg.check_every)
+    _, err_main = hold_chunk("main-path", args, kw)
+    ms = cuda_ms(lambda: fb.chunk_cuda(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: fb.chunk_plain(*args, **kw), 3)
+    flops = fb.chunk_flops(args[1], D, kw["n_iters"])
+    n_out = sum(a.numel() for a in args[15:]) + 5 * B
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * n_out
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    minv_stream = kw["n_iters"] * args[0].numel() * 4 / PEAK_HBM_BYTES * 1e3
+    print(f"chunk on the main path's first QP, B={B}, {kw['n_iters']} "
+          f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP -> "
+          f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); Minv "
+          f"streamed every iteration -> {minv_stream:.3f} ms")
+    return {"name": "admm_block_chunk", "route": "cuda",
+            "source": "trajopt_tpu_torch/csrc/admm_block_chunk.cu",
+            "replaces": "trajopt_tpu/qp/pallas_block.py:182",
+            "max_abs_err": max(err_syn, err_main), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes the chunk
+            "library_ms": None}
+
+
+def small_qp_step(dev) -> torch.Tensor:
+    """The first QP of pr2ish (10 steps, 3 lanes) on ``dev``, run for all
+    450 ADMM iterations (eps 0).  Returns the QP solutions [3, 80]."""
+    prep, lb, ub, x = first_qp(10, 3, 5, dev)
+    cfg = dataclasses.replace(flagship_params().qp, eps_abs=0.0, eps_rel=0.0)
+    return solve_qp_block_prepared(prep, lb, ub, x, cfg=cfg).x
+
+
+def small_solve(dev):
+    """The whole flagship-settings solve of pr2ish (10 steps, LVS 2) on
+    3 lanes, in float32 on ``dev``: the inputs of the CPU test that holds
+    the port's float32 solve against the JAX package's."""
+    prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2, device=dev)
+    solve = make_solver(prob.build(), flagship_params(), structured=True)
+    inits, goals = pr2ish_table_batch(0, 3, 10, dtype=torch.float32,
+                                      device=dev)
+    x0 = inits.reshape(3, -1)
+    res = solve(x0, *prob.bounds(x0), {"goal": goals})
+    return [t.cpu() for t in (res.status, res.n_iter, res.n_qp_solves,
+                              res.x)]
+
+
+def phase_small_reference():
+    """The card's path (float32, kernel) against the CPU's plain version,
+    which the CPU tests hold against the JAX package: one QP step against
+    float64, and a whole solve against float32."""
+    fb.COUNTER.reset()
+    gpu = small_qp_step(torch.device("cuda")).double().cpu()
+    if fb.COUNTER.launches == 0:
+        raise SystemExit("the card's QP step did not launch the kernel")
+    cpu = small_qp_step(torch.device("cpu"))
+    dx = float((gpu - cpu).abs().max())
+    tol = SMALL_XTOL * max(1.0, float(cpu.abs().max()))
+    print(f"small QP step (pr2ish 10 steps, 3 lanes, 450 iterations): card "
+          f"float32 vs CPU float64 max |dx| {dx:.3e}, tolerance {tol:.3e}")
+    if not dx <= tol:
+        raise SystemExit(f"card and CPU QP solutions differ by {dx:.3e}")
+
+    gpu = small_solve(torch.device("cuda"))
+    cpu = small_solve(torch.device("cpu"))
+    dx = float((gpu[3] - cpu[3]).abs().max())
+    names = ("status", "SQP iterations", "QP solves")
+    print(f"small solve (pr2ish 10 steps, 3 lanes, float32): card vs CPU "
+          + ", ".join(f"{n} {g.tolist()} vs {c.tolist()}"
+                      for n, g, c in zip(names, gpu, cpu))
+          + f"; max |dx| {dx:.3e}, tolerance {SOLVE_XTOL:.0e}")
+    for n, g, c in zip(names, gpu, cpu):
+        if not torch.equal(g, c):
+            raise SystemExit(f"small solve: {n} differ between card and CPU")
+    if not dx <= SOLVE_XTOL:
+        raise SystemExit(f"small solve: card and CPU x differ by {dx:.3e}")
+
+
+def device_busy_share(prof, wall_us: float) -> float | None:
+    """Share of the wall time during which a kernel ran (union of the
+    profiler's device intervals), or None when the trace has none."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / wall_us
+
+
+def phase_main_path(smi: str) -> int:
+    n_steps = 30
+    prob, scene = pr2ish_table_problem(n_steps=n_steps, lvs_substeps=2)
+    solve = prob.make_solve(flagship_params(), structured=True)
+    inits, goals = pr2ish_table_batch(0, B, n_steps)
+    t0 = time.time()
+    solve(inits, {"goal": goals})
+    torch.cuda.synchronize()
+    print(f"warm-up solve: {time.time() - t0:.2f} s")
+
+    inits, goals = pr2ish_table_batch(1, B, n_steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.COUNTER.reset()
+    t0 = time.time()
+    res = solve(inits, {"goal": goals})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fb.COUNTER.launches
+
+    if tuple(res.x.shape) != (B, n_steps * 8) or \
+            not bool(torch.isfinite(res.x).all()):
+        raise SystemExit("main path: trajectories not finite or of the "
+                         "wrong shape")
+    traj = res.x.reshape(B, n_steps, 8)
+    mins = swept_verify(scene, traj)
+    conv = res.status == SQPStatus.CONVERGED
+    verified = conv & (mins > 0)
+    n_conv, n_ver = int(conv.sum()), int(verified.sum())
+    goal_err = (float((traj[conv, -1] - goals[conv]).abs().max())
+                if n_conv else float("nan"))
+    print(f"main path: converged {n_conv}/{B}, converged and swept-verified "
+          f"{n_ver}/{B}, worst clearance {float(mins.min()):+.4f}, max goal "
+          f"error {goal_err:.2e}, mean SQP iterations "
+          f"{float(res.n_iter.float().mean()):.2f}, mean QP solves "
+          f"{float(res.n_qp_solves.float().mean()):.2f}, statuses "
+          f"{torch.bincount(res.status.cpu().long(), minlength=5).tolist()}")
+    print(f"main path: {wall:.3f} s for {B} lanes -> {n_ver / wall:.2f} "
+          f"verified solves/s on {smi}; admm_block_chunk launches "
+          f"{launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches <= 0:
+        raise SystemExit("the main path never launched the chunk kernel")
+    if n_ver < MIN_VERIFIED:
+        raise SystemExit(f"only {n_ver}/{B} lanes converged and verified "
+                         f"(< {MIN_VERIFIED})")
+
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.time()
+        solve(inits, {"goal": goals})
+        torch.cuda.synchronize()
+        pwall = time.time() - t0
+    share = device_busy_share(prof, pwall * 1e6)
+    if share is None:
+        print("device idle share: not measured (no device events traced)")
+    else:
+        print(f"profiled solve: {pwall:.3f} s wall, device busy "
+              f"{share:.4f}, idle share {1 - share:.4f} (under the "
+              f"profiler)")
+        print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                        row_limit=12, max_name_column_width=60))
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    t_start = time.time()
+    smi = phase_device()
+    phase_build()
+    kern = phase_kernel_check(dev)
+    phase_small_reference()
+    kern["launches"] = phase_main_path(smi)
+    print(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,130 @@
+"""Port on the card: the hand-written chunk kernel against its plain
+version, the wrapper's checks and launch count, and a small solve.
+
+Every test here needs an NVIDIA GPU and skips without one.  This file
+imports neither JAX nor the JAX package, so it also runs where JAX is not
+installed (``--noconftest`` skips the JAX set-up of tests/conftest.py):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from trajopt_tpu_torch.models.benchmarks import (pr2ish_table_batch,
+                                                 pr2ish_table_problem)
+from trajopt_tpu_torch.qp import block_banded as bb
+from trajopt_tpu_torch.qp import fused_block as fb
+from trajopt_tpu_torch.qp.admm import ADMMConfig
+from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+
+pytestmark = pytest.mark.cuda
+
+T, D, K, R, B = 6, 3, 2, 5, 9
+KW = dict(D=D, sigma=1e-6, alpha=1.6, rho_b=0.1, n_iters=60)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, seed=0):
+    """Seeded float32 chunk operands with hard, penalty and inert rows."""
+    rng = np.random.default_rng(seed)
+    n, m, KD = T * D, T * R, K * D
+    live = np.zeros((T, R), bool)
+    live[:T - K + 1, :4] = True
+    Wb = rng.standard_normal((B, T, R, KD)) * live[None, :, :, None]
+    live = live.reshape(-1)
+    bnd = rng.standard_normal((B, m))
+    c = np.where(live & (np.arange(m) % R == 0), np.inf,
+                 np.where(live, rng.uniform(1, 50, (B, m)), 0.0))
+    rho_c = np.full((B, m), 0.1)
+    A = rng.standard_normal((B, n, n))
+    P = A @ A.transpose(0, 2, 1) / n + np.eye(n)
+    bd = rng.uniform(0.5, 1.5, (B, n))
+    f64 = dict(dtype=torch.float64, device=dev)
+    Wt = torch.as_tensor(Wb, **f64)
+    plan = bb.BlockPlan(T=T, D=D, K=K, R=R, m=0, w=KD,
+                        blk_index=np.zeros(0, np.int64),
+                        scatter_idx=np.zeros(0, np.int64))
+    M = (torch.as_tensor(P, **f64) + 1e-6 * torch.eye(n, **f64)
+         + bb.at_r_a(bb.BlockBanded(Wt, plan), torch.as_tensor(rho_c, **f64))
+         + torch.diag_embed(torch.as_tensor(0.1 * bd * bd, **f64)))
+    x = torch.as_tensor(rng.standard_normal((B, n)) * 0.1, **f64)
+    ops = [torch.linalg.inv(M), Wt, torch.as_tensor(P, **f64),
+           rng.standard_normal((B, n)),
+           np.where(live & (np.arange(m) % 2 == 0), bnd, -np.inf),
+           np.where(live, bnd, np.inf),
+           np.where(np.isinf(c), np.inf, c / rho_c), rho_c,
+           -rng.uniform(0.1, 1, (B, n)), rng.uniform(0.1, 1, (B, n)), bd,
+           rng.uniform(0.5, 2, (B, m)), rng.uniform(0.5, 2, (B, n)),
+           rng.uniform(0.5, 2, (B, n)), rng.uniform(0.5, 2, (B,)),
+           x, bb.matvec_wb(Wt, x, D), torch.as_tensor(bd, **f64) * x,
+           rng.standard_normal((B, m)) * 0.01 * live, np.zeros((B, n))]
+    return [torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
+            for v in ops]
+
+
+def test_kernel_matches_plain_version(cuda):
+    args = _inputs(cuda)
+    args[3][4, 2] = float("nan")                 # a blown-up lane
+    before = fb.COUNTER.launches
+    got = fb.chunk_cuda(*args, **KW)
+    assert fb.COUNTER.launches == before + 1
+    ref = fb.chunk_plain(*[a.double() for a in args], **KW)
+    plain = fb.chunk_plain(*args, **KW)
+    for g, r, p in zip((*got[0], *got[1]), (*ref[0], *ref[1]),
+                       (*plain[0], *plain[1])):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        ok = ~torch.isnan(r)
+        err_k = (g[ok].double() - r[ok]).abs().max()
+        err_p = (p[ok].double() - r[ok]).abs().max()
+        # float32 sums in another order: within 4x the plain float32
+        # version's own distance to float64, plus 1e-6 of the magnitude
+        assert err_k <= 4 * err_p + 1e-6 * r[ok].abs().max()
+    assert torch.isnan(got[1].pri[4]) and torch.isnan(got[1].dua[4])
+
+
+def test_kernel_skips_inactive_lanes(cuda):
+    args = _inputs(cuda, seed=1)
+    active = torch.arange(B, device=cuda) % 3 != 0
+    state, stats = fb.chunk(*args, **KW, active=active)
+    for new, old in zip(state, args[15:]):
+        assert torch.equal(new[~active], old[~active])
+    assert torch.isnan(stats.pri[~active]).all()
+    assert torch.isfinite(stats.pri[active]).all()
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = _inputs(cuda)
+    with pytest.raises(TypeError):
+        fb.chunk_cuda(*[a.double() for a in args], **KW)
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.chunk_cuda(*bad, **KW)
+    bad[0] = args[0][:, :-1]
+    with pytest.raises(ValueError, match="shape"):
+        fb.chunk_cuda(*bad, **KW)
+
+
+def test_small_solve_on_the_card(cuda):
+    prob, _ = pr2ish_table_problem(n_steps=6, lvs_substeps=2)
+    # the flagship's float32 QP settings (__graft_entry__._solver_params)
+    qp = ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
+                    check_every=150, adaptive_rho=False, rho_dual_scale=0.1,
+                    ns_refresh=True, ns_tol=1e-4, ns_power_iters=4)
+    solve = prob.make_solve(SQPParams(max_restarts=1, qp=qp),
+                            structured=True)
+    inits, goals = pr2ish_table_batch(0, 4, 6)
+    assert inits.device.type == "cuda" and inits.dtype == torch.float32
+    before = fb.COUNTER.launches
+    res = solve(inits, {"goal": goals})
+    assert fb.COUNTER.launches > before
+    assert (res.status == SQPStatus.CONVERGED).all()
+    assert torch.isfinite(res.x).all()

@@ -1,0 +1,99 @@
+"""Benchmark problem builders: the pr2ish arm-around-table cast workload.
+
+Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``
+and ``pr2ish_table_batch``), plus :func:`swept_verify`, the independent
+post-solve swept-clearance check of the repository's ``bench.py``.  Goals
+come from a numpy seed (the JAX builders draw them with ``jax.random``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from trajopt_tpu_torch import resolve_device, resolve_dtype
+from trajopt_tpu_torch.collision.world import CollisionScene
+from trajopt_tpu_torch.models.robots import pr2ish, pr2ish_scene
+from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
+                                                  interpolated_init)
+from trajopt_tpu_torch.terms.collision import collision_term
+from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
+
+PR2ISH_HOME = np.array([0.05, -1.9, 1.2, -1.0, -1.4, 0.0, -0.6, 0.0])
+PR2ISH_GOAL = np.array([0.15, -0.3, 0.3, -0.5, -0.9, 0.0, -1.0, 0.0])
+# Goal noise per joint: small on the joints that place the forearm relative
+# to the table, large on the distance-insensitive roll joints.
+PR2ISH_GOAL_SCALE = np.array([0.01, 0.02, 0.015, 0.03, 0.03, 0.2, 0.04,
+                              0.3])
+
+
+def pr2ish_table_problem(n_steps: int = 30, *, evaluator: str = "cast",
+                         margin: float = 0.025, coeff: float = 20.0,
+                         lvs_substeps: int = 3,
+                         max_num_cnt: int | None = 16, device=None,
+                         ) -> tuple[TrajOptProblem, CollisionScene]:
+    """PR2-class arm-around-table CAST workload: 8-DOF (torso lift + 7R
+    arm), self-collision on, 91 candidate pairs; joint_vel smoothing cost,
+    goal joint-pose equality constraint (params key ``'goal'``) and cast
+    collision inequality constraints with the worst ``max_num_cnt`` rows
+    per (gap, sub-segment).  The problem solves on ``device`` (None: CUDA,
+    raising when there is none)."""
+    tree = pr2ish()
+    scene = pr2ish_scene()
+    prob = TrajOptProblem(n_steps=n_steps, n_dof=8, joint_lower=tree.lower,
+                          joint_upper=tree.upper, fixed_steps=[0],
+                          device=resolve_device(device))
+    prob.add_term(joint_vel(n_steps, 8, is_cost=True, coeffs=np.full(8, 5.0)))
+    prob.add_term(joint_pos(n_steps, 8, is_cost=False, targets="goal",
+                            first_step=n_steps - 1, last_step=n_steps - 1))
+    prob.add_term(collision_term(
+        scene, n_steps, margin=margin, coeff=coeff, is_cost=False,
+        evaluator=evaluator, fixed_steps=[0], lvs_substeps=lvs_substeps,
+        max_num_cnt=max_num_cnt))
+    return prob, scene
+
+
+def pr2ish_goals(seed: int, batch: int) -> np.ndarray:
+    """[batch, 8] goals: PR2ISH_GOAL plus seeded normal noise, clipped
+    0.02 inside the joint limits."""
+    noise = PR2ISH_GOAL_SCALE * np.random.default_rng(seed).standard_normal(
+        (batch, 8))
+    tree = pr2ish()
+    return np.clip(PR2ISH_GOAL[None, :] + noise, tree.lower + 0.02,
+                   tree.upper - 0.02)
+
+
+def pr2ish_table_batch(seed: int, batch: int, n_steps: int = 30,
+                       dtype=None, device=None):
+    """(inits [B, n_steps, 8], goals [B, 8]): randomized goals around
+    PR2ISH_GOAL from a numpy seed and straight-line inits from home, on
+    ``device`` (None: CUDA, raising when there is none)."""
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dev, dtype)
+    goals = torch.as_tensor(pr2ish_goals(seed, batch), dtype=dtype,
+                            device=dev)
+    home = torch.as_tensor(PR2ISH_HOME, dtype=dtype, device=dev)
+    inits = interpolated_init(home.expand_as(goals), goals, n_steps)
+    return inits, goals
+
+
+def swept_verify(scene: CollisionScene, traj: torch.Tensor,
+                 check_len: float = 0.05) -> torch.Tensor:
+    """[B] minimum swept clearance per lane of ``traj [B, T, n_dof]``: every
+    gap is cut into sub-segments no longer than ``check_len`` in joint
+    space (the same count for all lanes, from the batch's longest step; the
+    reference checkTrajectory's LONGEST_VALID_SEGMENT_LENGTH) and checked
+    with ``swept_distances``.  A lane is collision-free when its value is
+    > 0."""
+    max_disp = float(torch.linalg.vector_norm(torch.diff(traj, dim=1),
+                                              dim=-1).max())
+    n_sub = max(1, int(np.ceil(max_disp / check_len)))
+    fr = torch.linspace(0.0, 1.0, n_sub + 1, dtype=traj.dtype,
+                        device=traj.device)
+    a, b = traj[:, :-1], traj[:, 1:]
+    q = a[:, :, None, :] + fr[:, None] * (b - a)[:, :, None, :]
+    with torch.no_grad():
+        R, p = scene.tree.fk(q)
+        d = scene.swept_distances((R[:, :, :-1], p[:, :, :-1]),
+                                  (R[:, :, 1:], p[:, :, 1:]))
+    return torch.amin(d.reshape(d.shape[0], -1), -1)

@@ -1,0 +1,250 @@
+"""Fused block-banded ADMM chunks: the hand-written CUDA kernel
+(``csrc/admm_block_chunk.cu``) and its plain PyTorch version.  The loop
+over chunks is ``admm_block.solve_qp_block_prepared``.
+
+Counterpart of ``trajopt_tpu/qp/pallas_block.py``.  :func:`chunk` runs
+``check_every`` relaxed prox-ADMM iterations and returns the OSQP residual
+statistics, the function of ``_chunk_and_check`` there, but on the
+``[T, R, K*D]`` windows and ``[T*R]`` block row order of
+``block_banded.py`` (the slot-major layout and one-hot segment matmuls of
+the TPU kernel existed only for Mosaic).
+
+Dispatch: on CPU tensors :func:`chunk` runs :func:`chunk_plain`; on CUDA
+tensors it launches the kernel or raises — there is no fallback.  The
+kernel is built with ``nvcc`` for ``sm_90a`` at first use into
+``trajopt_tpu_torch/_build/`` and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from trajopt_tpu_torch.qp import block_banded as bb
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "admm_block_chunk.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SMEM_LIMIT = 232_448       # bytes of shared memory a Hopper block may use
+
+
+class LaunchCounter:
+    """Counts kernel launches (incremented only where the kernel is
+    launched, never by the plain version)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def reset(self):
+        self.launches = 0
+
+
+COUNTER = LaunchCounter()
+_LIB = None
+
+
+class ChunkStats(NamedTuple):
+    pri: torch.Tensor
+    dua: torch.Tensor
+    ax_n: torch.Tensor
+    z_n: torch.Tensor
+    pAty_n: torch.Tensor
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA chunk kernel cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel (once per source hash) and return the library
+    path.  ``verbose`` adds ``-Xptxas -v`` and prints its report."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libadmm_block_chunk_{tag}.so"
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr.strip())
+    os.replace(tmp, out)
+    return out
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.admm_block_chunk.argtypes = [vp] * 27 + [ci] * 5 + [cf] * 3 \
+            + [ci, vp]
+        lib.admm_block_chunk.restype = ci
+        lib.admm_block_chunk_smem.argtypes = [ci] * 4
+        lib.admm_block_chunk_smem.restype = ctypes.c_size_t
+        lib.admm_block_chunk_limits.argtypes = [ctypes.POINTER(ci)] * 3
+        lib.admm_block_chunk_limits.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+_ARG_NAMES = ("Minv", "Wb", "P", "q", "lc", "uc", "cr", "rho_c", "lb", "ub",
+              "bd", "Ec", "Eb", "Dd", "cobj", "x", "zc", "zb", "yc", "yb")
+
+
+def chunk_plain(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
+                cobj, x, zc, zb, yc, yb, *, D, sigma, alpha, rho_b, n_iters):
+    """Plain PyTorch chunk: ``n_iters`` iterations then the statistics.
+    Shapes: Minv/P [B,n,n], Wb [B,T,R,K*D], row vectors [B,T*R], column
+    vectors [B,n], cobj [B]; rho_b is the uniform box-row rho."""
+    inv_rho_c = 1.0 / rho_c
+    inv_rho_b = 1.0 / rho_b
+    for _ in range(n_iters):
+        rhs = (sigma * x - q + bb.rmatvec_wb(Wb, rho_c * zc - yc, D)
+               + bd * (rho_b * zb - yb))
+        xt = (Minv @ rhs[..., None])[..., 0]
+        ztc = bb.matvec_wb(Wb, xt, D)
+        ztb = bd * xt
+        x = alpha * xt + (1.0 - alpha) * x
+        zrc = alpha * ztc + (1.0 - alpha) * zc
+        zrb = alpha * ztb + (1.0 - alpha) * zb
+        v = zrc + yc * inv_rho_c
+        zc_new = torch.where(v > uc, torch.maximum(uc, v - cr),
+                             torch.where(v < lc, torch.minimum(lc, v + cr),
+                                         v))
+        zb_new = torch.minimum(ub, torch.maximum(lb, zrb + yb * inv_rho_b))
+        yc = yc + rho_c * (zrc - zc_new)
+        yb = yb + rho_b * (zrb - zb_new)
+        zc, zb = zc_new, zb_new
+
+    def inf(v):
+        return torch.amax(torch.abs(v), -1)
+
+    Cx = bb.matvec_wb(Wb, x, D)
+    Bx = bd * x
+    Px = (P @ x[..., None])[..., 0]
+    Aty = bb.rmatvec_wb(Wb, yc, D) + bd * yb
+    inv_cD = 1.0 / (cobj[:, None] * Dd)
+    stats = ChunkStats(
+        pri=torch.maximum(inf((Cx - zc) / Ec), inf((Bx - zb) / Eb)),
+        dua=inf((Px + q + Aty) * inv_cD),
+        ax_n=torch.maximum(inf(Cx / Ec), inf(Bx / Eb)),
+        z_n=torch.maximum(inf(zc / Ec), inf(zb / Eb)),
+        pAty_n=torch.maximum(inf(Px * inv_cD), inf(Aty * inv_cD)))
+    return (x, zc, zb, yc, yb), stats
+
+
+def chunk_flops(Wb: torch.Tensor, D: int, n_iters: int) -> int:
+    """Floating-point operations one chunk needs on these inputs: per
+    iteration and problem the dense ``Minv`` matvec (2 n^2), the banded
+    products ``C x`` and ``C' w`` (2 K*D each per row that holds a
+    weight; padded rows need none) and the elementwise updates (21 per
+    column, 13 per row); then the statistics (``P x``, ``C x``, ``C' y``
+    and about 10 per column and row)."""
+    B, T, R, KD = Wb.shape
+    n = T * D
+    rows = int((Wb != 0).any(-1).sum())
+    per_iter = B * (2 * n * n + 21 * n) + rows * (4 * KD + 13)
+    stats = B * (2 * n * n + 10 * n) + rows * (4 * KD + 10)
+    return n_iters * per_iter + stats
+
+
+def chunk_cuda(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
+               cobj, x, zc, zb, yc, yb, *, D, sigma, alpha, rho_b, n_iters,
+               active=None):
+    """Launch the kernel on the current stream.  ``active`` [B] bool skips
+    lanes (their outputs are left unwritten; :func:`chunk` masks them)."""
+    args = (Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd, cobj,
+            x, zc, zb, yc, yb)
+    B, T, R, KD = Wb.shape
+    if KD % D:
+        raise ValueError(f"window width {KD} is not a multiple of D={D}")
+    K, n, m = KD // D, T * D, T * R
+    shapes = {"Minv": (B, n, n), "Wb": (B, T, R, KD), "P": (B, n, n),
+              "cobj": (B,)}
+    for name in ("q", "lb", "ub", "bd", "Eb", "Dd", "x", "zb", "yb"):
+        shapes[name] = (B, n)
+    for name in ("lc", "uc", "cr", "rho_c", "Ec", "zc", "yc"):
+        shapes[name] = (B, m)
+    dev = Wb.device
+    for name, t in zip(_ARG_NAMES, args):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: expected shape {shapes[name]}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    lib = _lib()
+    threads, mc, mr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.admm_block_chunk_limits(threads, mc, mr)
+    if n > mc.value * threads.value or m > mr.value * threads.value:
+        raise ValueError(f"n={n}, m={m} exceed the kernel's per-thread "
+                         f"ownership ({mc.value}, {mr.value} x "
+                         f"{threads.value})")
+    smem = lib.admm_block_chunk_smem(T, D, K, R)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"shape needs {smem} B of shared memory "
+                         f"(> {SMEM_LIMIT})")
+    outs = [torch.empty_like(t) for t in (x, zc, zb, yc, yb)]
+    stats = torch.empty(B, 5, dtype=torch.float32, device=dev)
+    act = None
+    if active is not None:
+        act = active.to(device=dev, dtype=torch.int32).contiguous()
+    if B:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.admm_block_chunk(
+            *[t.data_ptr() for t in args], *[o.data_ptr() for o in outs],
+            stats.data_ptr(), None if act is None else act.data_ptr(),
+            B, T, D, K, R, float(sigma), float(alpha), float(rho_b),
+            int(n_iters), stream)
+        if err != 0:
+            raise RuntimeError(f"admm_block_chunk launch failed: CUDA error "
+                               f"{err}")
+        COUNTER.launches += 1
+    return tuple(outs), ChunkStats(*stats.unbind(-1))
+
+
+def chunk(*args, D, sigma, alpha, rho_b, n_iters, active=None):
+    """One fused chunk (see module doc).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel.  With ``active`` [B] bool,
+    inactive lanes return their input state unchanged."""
+    dev = args[0].device
+    if dev.type == "cpu":
+        state, stats = chunk_plain(*args, D=D, sigma=sigma, alpha=alpha,
+                                   rho_b=rho_b, n_iters=n_iters)
+    elif dev.type == "cuda":
+        state, stats = chunk_cuda(*args, D=D, sigma=sigma, alpha=alpha,
+                                  rho_b=rho_b, n_iters=n_iters, active=active)
+    else:
+        raise ValueError(f"no chunk implementation for device {dev}")
+    if active is None:
+        return state, stats
+    keep = active[:, None]
+    state = tuple(torch.where(keep, new, old)
+                  for new, old in zip(state, args[15:]))
+    nan = float("nan")
+    stats = ChunkStats(*(torch.where(active, s, torch.full_like(s, nan))
+                         for s in stats))
+    return state, stats

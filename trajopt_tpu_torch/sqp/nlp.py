@@ -1,0 +1,358 @@
+"""Nonconvex problem model: term sets, structured convexification, exact
+evaluation, on batched tensors.
+
+Counterpart of ``trajopt_tpu/sqp/nlp.py`` (the reference's ``sco::Cost`` /
+``sco::Constraint`` layer).  A term is a function ``fn(x, params) ->
+residuals`` on a batch: ``x [B, n]``, ``params`` a dict of tensors with a
+leading ``B`` axis, residuals ``[B, n_rows]``.  Jacobians of affine terms
+come from ``torch.func.jacrev``; collision terms supply analytic banded
+Jacobians.
+
+Ported: ``Kind``, ``TermSet``, ``Nlp``, the residual/Jacobian helpers, the
+exact evaluations and the structured (banded) path the block QP consumes.
+The dense ``convexify`` path and generic (non least-squares) costs wait.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+Params = dict
+
+
+class Kind(enum.Enum):
+    """Term classification (the reference's PenaltyType / ConstraintType)."""
+
+    COST_SQ = "cost_sq"
+    COST_ABS = "cost_abs"
+    COST_HINGE = "cost_hinge"
+    COST_GENERIC_FULL = "cost_generic_full"
+    COST_GENERIC_DIAG = "cost_generic_diag"
+    CNT_EQ = "cnt_eq"
+    CNT_INEQ = "cnt_ineq"
+
+
+COST_KINDS = (Kind.COST_SQ, Kind.COST_ABS, Kind.COST_HINGE,
+              Kind.COST_GENERIC_FULL, Kind.COST_GENERIC_DIAG)
+CNT_KINDS = (Kind.CNT_EQ, Kind.CNT_INEQ)
+PENALTY_COST_KINDS = (Kind.COST_ABS, Kind.COST_HINGE)
+GENERIC_KINDS = (Kind.COST_GENERIC_FULL, Kind.COST_GENERIC_DIAG)
+
+
+def as_like(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a tensor on ``like``'s device and dtype."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class TermSet:
+    """One named group of residual rows sharing a kind.
+
+    ``fn(x [B, n], params) -> [B, n_rows]``; ``weight_fn(params)`` gives
+    per-row cost weights (scalar, ``[n_rows]`` or ``[B, n_rows]``).
+    ``banded_jac(x, params) -> W [B, n_rows, band_width]`` with row r
+    covering columns ``band_starts[r] ... + band_width``;
+    ``val_banded_jac`` returns (residuals, W) from one pass.  ``groups``
+    maps constraint rows to merit units (None -> one unit).
+    """
+
+    name: str
+    kind: Kind
+    fn: Callable[[torch.Tensor, Params], torch.Tensor]
+    n_rows: int
+    weight_fn: Callable[[Params], Any] = lambda p: 1.0
+    jac_fn: Callable | None = None
+    linear: bool = False
+    banded_jac: Callable | None = None
+    band_starts: np.ndarray | None = None
+    band_width: int = 0
+    val_jac_fn: Callable | None = None
+    val_banded_jac: Callable | None = None
+    groups: np.ndarray | None = None
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Nlp:
+    """A nonconvex problem over a flat decision vector of size ``n``;
+    ``block = (T, D)`` marks the trajectory layout the block QP needs."""
+
+    n: int
+    term_sets: tuple[TermSet, ...]
+    block: tuple[int, int] | None = None
+
+    @property
+    def cost_sets(self) -> tuple[TermSet, ...]:
+        return tuple(t for t in self.term_sets if t.kind in COST_KINDS)
+
+    @property
+    def cnt_sets(self) -> tuple[TermSet, ...]:
+        return tuple(t for t in self.term_sets if t.kind in CNT_KINDS)
+
+    @property
+    def num_cost_sets(self) -> int:
+        return len(self.cost_sets)
+
+    @property
+    def num_cnt_sets(self) -> int:
+        return len(self.cnt_sets)
+
+
+def _weights(t: TermSet, params, like: torch.Tensor) -> torch.Tensor:
+    """Per-row weights broadcast to [B, n_rows]."""
+    w = as_like(t.weight_fn(params), like)
+    return torch.broadcast_to(w, (like.shape[0], t.n_rows))
+
+
+def _residual_and_jac(term: TermSet, x, params, jac_cache=None, key=None):
+    """(r [B, rows], J [B, rows, n]) of one term set."""
+    if jac_cache is not None and key in jac_cache:
+        return term.fn(x, params), jac_cache[key]
+    if term.val_jac_fn is not None:
+        return term.val_jac_fn(x, params)
+    if term.jac_fn is not None:
+        return term.fn(x, params), term.jac_fn(x, params)
+    return term.fn(x, params), _lane_jacrev(term, x, params)
+
+
+def _lane_jacrev(t: TermSet, x, params):
+    """Per-lane reverse-mode Jacobian [B, rows, n] of a batched term."""
+    def f(v, p):
+        return t.fn(v[None], {k: val[None] for k, val in p.items()})[0]
+    return torch.func.vmap(torch.func.jacrev(f))(x, params)
+
+
+def linear_jacobians(nlp: Nlp, x: torch.Tensor, params) -> dict:
+    """Constant Jacobians of affine term sets (hoisted out of the SQP
+    loop), evaluated at x = 0 per lane."""
+    cache = {}
+    x0 = torch.zeros_like(x)
+    for i, t in enumerate(nlp.term_sets):
+        if t.linear and t.jac_fn is None:
+            cache[i] = _lane_jacrev(t, x0, params)
+    return cache
+
+
+def cost_row_structure(nlp: Nlp) -> list[tuple[TermSet, slice]]:
+    """Static row slices of the stacked cost rows, per non-generic set."""
+    out, start = [], 0
+    for t in nlp.cost_sets:
+        if t.kind in GENERIC_KINDS:
+            continue
+        out.append((t, slice(start, start + t.n_rows)))
+        start += t.n_rows
+    return out
+
+
+def cnt_row_structure(nlp: Nlp) -> list[tuple[TermSet, slice]]:
+    out, start = [], 0
+    for t in nlp.cnt_sets:
+        out.append((t, slice(start, start + t.n_rows)))
+        start += t.n_rows
+    return out
+
+
+def term_groups(t: TermSet) -> int:
+    return t.n_groups if t.groups is not None else 1
+
+
+def num_cnt_groups(nlp: Nlp) -> int:
+    """Total merit units (one per hatched constraint; per group here)."""
+    return sum(term_groups(t) for t in nlp.cnt_sets)
+
+
+def cnt_group_structure(nlp: Nlp) -> list[tuple[TermSet, slice, slice]]:
+    """[(term, row_slice, group_slice)] over constraint sets."""
+    out, row0, g0 = [], 0, 0
+    for t in nlp.cnt_sets:
+        ng = term_groups(t)
+        out.append((t, slice(row0, row0 + t.n_rows), slice(g0, g0 + ng)))
+        row0 += t.n_rows
+        g0 += ng
+    return out
+
+
+def _group_reduce(viol_rows: torch.Tensor, t: TermSet) -> torch.Tensor:
+    """Sum per-row violations [B, rows] into per-group totals."""
+    if t.groups is None:
+        return viol_rows.sum(-1, keepdim=True)
+    out = viol_rows.new_zeros(viol_rows.shape[0], t.n_groups)
+    return out.index_add(1, torch.as_tensor(t.groups, device=out.device),
+                         viol_rows)
+
+
+def _convexify_costs(nlp: Nlp, x, params, jac_cache, *, pen_rows: bool):
+    """Quadratize the cost sets at x -> (P [B,n,n], q [B,n], c0 [B])."""
+    B, n = x.shape
+    P = x.new_zeros(B, n, n)
+    q = x.new_zeros(B, n)
+    c0 = x.new_zeros(B)
+    index_of = {id(t): i for i, t in enumerate(nlp.term_sets)}
+    for t in nlp.cost_sets:
+        if (not pen_rows) and t.kind in PENALTY_COST_KINDS:
+            continue
+        if t.kind in GENERIC_KINDS:
+            raise NotImplementedError(
+                f"generic cost set {t.name!r}: not ported yet")
+        r, J = _residual_and_jac(t, x, params, jac_cache, index_of[id(t)])
+        b = r - (J @ x[..., None])[..., 0]
+        w = _weights(t, params, x)
+        if t.kind is Kind.COST_SQ:
+            JW = J * w[..., None]
+            P = P + 2.0 * (J.transpose(-1, -2) @ JW)
+            q = q + 2.0 * (JW.transpose(-1, -2) @ b[..., None])[..., 0]
+            c0 = c0 + (w * b * b).sum(-1)
+    return P, q, c0
+
+
+def _interval_dist(v, l, u):
+    zero = v.new_zeros(())
+    return torch.maximum(v - u, zero) + torch.maximum(l - v, zero)
+
+
+def eval_exact_costs(nlp: Nlp, x, params) -> torch.Tensor:
+    """Per-cost-set exact values [B, n_cost_sets]."""
+    vals = []
+    for t in nlp.cost_sets:
+        r = t.fn(x, params)
+        w = as_like(t.weight_fn(params), x)
+        if t.kind is Kind.COST_SQ:
+            vals.append((w * r * r).sum(-1))
+        elif t.kind is Kind.COST_ABS:
+            vals.append((w * torch.abs(r)).sum(-1))
+        elif t.kind is Kind.COST_HINGE:
+            vals.append((w * torch.maximum(r, r.new_zeros(()))).sum(-1))
+        else:
+            vals.append((w * r).sum(-1))
+    return torch.stack(vals, -1) if vals else x.new_zeros(x.shape[0], 0)
+
+
+def eval_exact_cnt_viols(nlp: Nlp, x, params) -> torch.Tensor:
+    """Per-group exact violations [B, num_cnt_groups] (|g| for EQ, pos(g)
+    for INEQ, summed per merit unit)."""
+    vals = []
+    for t in nlp.cnt_sets:
+        r = t.fn(x, params)
+        rows = torch.abs(r) if t.kind is Kind.CNT_EQ \
+            else torch.maximum(r, r.new_zeros(()))
+        vals.append(_group_reduce(rows, t))
+    return torch.cat(vals, -1) if vals else x.new_zeros(x.shape[0], 0)
+
+
+# ----------------------------------------------------------------------
+# Structured (banded) convexification: consumed by the block QP path.
+
+class StructuredModel(NamedTuple):
+    """Quadratic cost model plus banded constraint/penalty rows.
+
+    Row order: [cnt-set rows; abs/hinge cost rows].  All fields carry the
+    batch axis first (``is_pen`` too, so lane gathers treat every field
+    alike)."""
+
+    P: torch.Tensor       # [B, n, n]
+    q: torch.Tensor       # [B, n]
+    c0: torch.Tensor      # [B]
+    W: torch.Tensor       # [B, m, w] banded window weights
+    b: torch.Tensor       # [B, m] residual offsets (a(x) = C x + b)
+    l: torch.Tensor       # [B, m]
+    u: torch.Tensor       # [B, m]
+    is_pen: torch.Tensor  # [B, m] bool: penalty-cost row (vs cnt row)
+    pen_w: torch.Tensor   # [B, m] penalty weight of cost rows (0 for cnt)
+
+
+def structured_sets(nlp: Nlp) -> list:
+    """Sets contributing banded rows, in QP row order."""
+    out = [t for t, _ in cnt_row_structure(nlp)]
+    out += [t for t, _ in cost_row_structure(nlp)
+            if t.kind in PENALTY_COST_KINDS]
+    return out
+
+
+def supports_structured(nlp: Nlp) -> bool:
+    return all(t.banded_jac is not None for t in structured_sets(nlp))
+
+
+def structured_band(nlp: Nlp) -> tuple[np.ndarray, int]:
+    """(starts [m_rows], width) of the combined banded matrix (static)."""
+    w = max(t.band_width for t in structured_sets(nlp))
+    starts = np.concatenate([np.asarray(t.band_starts)
+                             for t in structured_sets(nlp)])
+    return starts, w
+
+
+def _band_index(starts, w, n, device) -> torch.Tensor:
+    return torch.as_tensor(
+        np.minimum(np.asarray(starts)[:, None] + np.arange(w), n - 1),
+        device=device)
+
+
+def convexify_structured(nlp: Nlp, x, params, jac_cache=None
+                         ) -> StructuredModel:
+    """Quadratic cost model plus banded constraint/penalty rows at x."""
+    B, n = x.shape
+    _, w = structured_band(nlp)
+    P, q, c0 = _convexify_costs(nlp, x, params, jac_cache, pen_rows=False)
+    W_rows, b_rows, l_rows, u_rows, pen_rows, penw_rows = [], [], [], [], [], []
+    inf = float("inf")
+    for t in structured_sets(nlp):
+        if t.val_banded_jac is not None:
+            r, Wt = t.val_banded_jac(x, params)
+        else:
+            r, Wt = t.fn(x, params), t.banded_jac(x, params)
+        if t.band_width != w:
+            Wt = torch.cat([Wt, Wt.new_zeros(B, t.n_rows, w - t.band_width)],
+                           -1)
+        idx = _band_index(t.band_starts, w, n, x.device)
+        b = r - (Wt * x[:, idx]).sum(-1)
+        W_rows.append(Wt)
+        b_rows.append(b)
+        zeros = x.new_zeros(B, t.n_rows)
+        if t.kind is Kind.CNT_EQ:
+            l_rows.append(zeros)
+            u_rows.append(zeros)
+            pen_rows.append(torch.zeros_like(zeros, dtype=torch.bool))
+            penw_rows.append(zeros)
+        elif t.kind is Kind.CNT_INEQ:
+            l_rows.append(torch.full_like(zeros, -inf))
+            u_rows.append(zeros)
+            pen_rows.append(torch.zeros_like(zeros, dtype=torch.bool))
+            penw_rows.append(zeros)
+        else:
+            l_rows.append(zeros if t.kind is Kind.COST_ABS
+                          else torch.full_like(zeros, -inf))
+            u_rows.append(zeros)
+            pen_rows.append(torch.ones_like(zeros, dtype=torch.bool))
+            penw_rows.append(_weights(t, params, x))
+    return StructuredModel(
+        P=P, q=q, c0=c0, W=torch.cat(W_rows, 1), b=torch.cat(b_rows, 1),
+        l=torch.cat(l_rows, 1), u=torch.cat(u_rows, 1),
+        is_pen=torch.cat(pen_rows, 1), pen_w=torch.cat(penw_rows, 1))
+
+
+def structured_row_values(nlp: Nlp, sm: StructuredModel, x):
+    """a(x) = C x + b for all banded rows."""
+    starts, w = structured_band(nlp)
+    idx = _band_index(starts, w, nlp.n, x.device)
+    return (sm.W * x[:, idx]).sum(-1) + sm.b
+
+
+def structured_model_cost_total(nlp: Nlp, sm: StructuredModel, x):
+    total = 0.5 * (x * (sm.P @ x[..., None])[..., 0]).sum(-1) \
+        + (sm.q * x).sum(-1) + sm.c0
+    a = structured_row_values(nlp, sm, x)
+    d = _interval_dist(a, sm.l, sm.u)
+    return total + torch.where(sm.is_pen, sm.pen_w * d,
+                               torch.zeros_like(d)).sum(-1)
+
+
+def structured_model_cnt_viols(nlp: Nlp, sm: StructuredModel, x):
+    a = structured_row_values(nlp, sm, x)
+    d = _interval_dist(a, sm.l, sm.u)
+    vals = [_group_reduce(d[:, sl], t)
+            for t, sl, _ in cnt_group_structure(nlp)]
+    return torch.cat(vals, -1) if vals else x.new_zeros(x.shape[0], 0)

@@ -1,0 +1,425 @@
+"""Trust-region SQP with L1 exact-penalty outer loop, on batches of lanes.
+
+Counterpart of ``trajopt_tpu/sqp/solver.py`` (``make_solver``), block-banded
+QP branch: the algorithm of ``sco::BasicTrustRegionSQP::optimize()`` as
+three nested loops -- penalty escalation, SQP convexification and the
+trust-region accept/reject loop -- with the ADMM warm start and the KKT
+inverse carried across iterations.
+
+The JAX solver is written per problem and batched by ``vmap`` over its
+``lax.while_loop``s, so a lane whose loop condition is false keeps its
+state while other lanes iterate.  Here the batch is the leading axis and
+every loop runs while any lane is live; each pass gathers the live lanes,
+steps them, and scatters the results back.  Lanes never mix, so a lane's
+result does not depend on its neighbours, exactly as under ``vmap``.
+
+Not ported yet: the dense and gather-banded QP paths (``structured=False``
+or a layout that is not step-aligned), the IPM QP, callbacks, the
+saturated-dual rescale (``rescale_duals_on_escalation``) and the
+multi-start ``params["restart_inits"]`` family.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from trajopt_tpu_torch.qp import block_banded as bb
+from trajopt_tpu_torch.qp.admm_block import (BlockQP, prepare_qp_block,
+                                             solve_qp_block_prepared)
+from trajopt_tpu_torch.sqp import nlp as nlp_mod
+from trajopt_tpu_torch.sqp.nlp import Nlp, StructuredModel
+from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+
+
+class SQPResult(NamedTuple):
+    x: torch.Tensor             # [B, n] final iterates
+    status: torch.Tensor        # [B] int32 SQPStatus codes
+    cost_vals: torch.Tensor     # [B, n_cost_sets] exact per-set costs
+    cnt_viols: torch.Tensor     # [B, num_cnt_groups] exact violations
+    total_cost: torch.Tensor    # [B]
+    merit_coeffs: torch.Tensor  # [B, num_cnt_groups]
+    box_size: torch.Tensor      # [B]
+    n_iter: torch.Tensor        # [B]
+    n_qp_solves: torch.Tensor   # [B]
+    n_func_evals: torch.Tensor  # [B]
+
+
+class _State(NamedTuple):
+    x: torch.Tensor
+    cost_vals: torch.Tensor
+    cnt_viols: torch.Tensor
+    merit_coeffs: torch.Tensor
+    box_size: torch.Tensor
+    merit_increases: torch.Tensor
+    iter_in_round: torch.Tensor
+    restarts_used: torch.Tensor
+    total_iter: torch.Tensor
+    status: torch.Tensor
+    n_qp_solves: torch.Tensor
+    n_func_evals: torch.Tensor
+    z: torch.Tensor             # ADMM warm start [B, m_blk + n]
+    y: torch.Tensor
+    minv: torch.Tensor          # [B, n, n] carried KKT inverse ([B, 0, 0]
+    #                             when the Newton-Schulz refresh is off)
+
+
+class _TrustState(NamedTuple):
+    box_size: torch.Tensor
+    done: torch.Tensor
+    outcome: torch.Tensor
+    qp_fails: torch.Tensor
+    x: torch.Tensor
+    cost_vals: torch.Tensor
+    cnt_viols: torch.Tensor
+    n_qp_solves: torch.Tensor
+    n_func_evals: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+
+
+_SHRINKING, _ACCEPTED, _CONVERGED_SMALL, _QP_FAILED = 0, 1, 2, 3
+
+
+def _map(fn, *trees):
+    """Apply ``fn`` to every tensor leaf of matching (named)tuple/dict
+    trees; other leaves (plans, None) pass through from the first tree."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t0, tuple):
+        parts = [_map(fn, *f) for f in zip(*trees)]
+        return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
+    if isinstance(t0, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in t0}
+    return t0
+
+
+def _take(tree, idx):
+    return tree if idx is None else _map(lambda t: t[idx], tree)
+
+
+def _put(tree, idx, sub):
+    if idx is None:
+        return sub
+    return _map(lambda t, s: t.index_copy(0, idx, s), tree, sub)
+
+
+def _live(mask: torch.Tensor):
+    """(any, idx): whether any lane is set, and the set lanes' indices
+    (None when all are set, so the common case gathers nothing)."""
+    idx = torch.nonzero(mask).squeeze(1)
+    if idx.numel() == 0:
+        return False, None
+    return True, (None if idx.numel() == mask.numel() else idx)
+
+
+def _cnt_row_coeffs(nlp: Nlp, merit_coeffs: torch.Tensor) -> torch.Tensor:
+    """Per-group merit coefficients [B, groups] expanded to per-row
+    penalty weights [B, cnt_rows]."""
+    parts = []
+    for t, _, gsl in nlp_mod.cnt_group_structure(nlp):
+        cg = merit_coeffs[:, gsl]
+        if t.groups is None:
+            parts.append(cg.expand(-1, t.n_rows))
+        else:
+            parts.append(cg[:, torch.as_tensor(t.groups,
+                                               device=cg.device)])
+    if not parts:
+        return merit_coeffs.new_zeros(merit_coeffs.shape[0], 0)
+    return torch.cat(parts, -1)
+
+
+def _structured_cnt_coeffs(nlp: Nlp, merit_coeffs: torch.Tensor):
+    """Merit coefficients over ALL structured rows (trailing penalty-cost
+    rows get a placeholder that pen_w overwrites)."""
+    n_pen = sum(t.n_rows for t, _ in nlp_mod.cost_row_structure(nlp)
+                if t.kind in nlp_mod.PENALTY_COST_KINDS)
+    return torch.cat([_cnt_row_coeffs(nlp, merit_coeffs),
+                      merit_coeffs.new_zeros(merit_coeffs.shape[0], n_pen)],
+                     -1)
+
+
+def block_qp(nlp: Nlp, plan: bb.BlockPlan, model: StructuredModel,
+             merit_coeffs: torch.Tensor, x: torch.Tensor) -> BlockQP:
+    """The box-independent block QP of a structured model: constraint
+    rows weighted by their group's merit coefficient, penalty-cost rows
+    by their weight, both in block row order (its lb/ub are placeholders
+    set to ``x``; the trust box is passed per solve)."""
+    row_c = torch.where(model.is_pen, model.pen_w,
+                        _structured_cnt_coeffs(nlp, merit_coeffs))
+    inf = float("inf")
+    return BlockQP(
+        P=model.P, q=model.q, C=bb.from_rows(model.W, plan),
+        l=bb.to_block(model.l - model.b, plan, -inf),
+        u=bb.to_block(model.u - model.b, plan, inf),
+        c=bb.to_block(row_c, plan, 0.0), lb=x, ub=x)
+
+
+def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
+                structured: bool = False):
+    """Build ``solve(x0 [B, n], lb [B, n], ub [B, n], params) -> SQPResult``
+    for a fixed problem structure; ``params`` is a dict of per-lane
+    tensors with a leading ``B`` axis."""
+    if not structured:
+        raise NotImplementedError(
+            "only the structured block-banded QP path is ported; pass "
+            "structured=True")
+    if sqp.qp_algorithm != "admm":
+        raise NotImplementedError("only the ADMM QP is ported")
+    if sqp.rescale_duals_on_escalation:
+        raise NotImplementedError(
+            "rescale_duals_on_escalation is not ported yet")
+    if not nlp_mod.supports_structured(nlp):
+        missing = [t.name for t in nlp_mod.structured_sets(nlp)
+                   if t.banded_jac is None]
+        raise ValueError(f"structured=True requires banded_jac on all "
+                         f"constraint/penalty sets; missing on {missing}")
+    if nlp.block is None:
+        raise NotImplementedError("the gather-banded QP path (no (T, D) "
+                                  "block layout) is not ported")
+    starts, band_w = nlp_mod.structured_band(nlp)
+    try:
+        plan = bb.make_plan(starts, band_w, nlp.block[0], nlp.block[1])
+    except ValueError as e:
+        raise NotImplementedError(
+            "the gather-banded QP path (row windows that are not "
+            "step-aligned) is not ported") from e
+    n = nlp.n
+    n_cnt = nlp_mod.num_cnt_groups(nlp)
+    m_blk = plan.m_blk
+    cfg = sqp.qp
+
+    def merit(cost_vals, cnt_viols, merit_coeffs):
+        return cost_vals.sum(-1) + (merit_coeffs * cnt_viols).sum(-1)
+
+    def block_prepare(model: StructuredModel, merit_coeffs, x, minv0=None):
+        """Equilibrate and factor the block QP once per SQP step (every
+        trust-region QP of the step reuses it)."""
+        return prepare_qp_block(block_qp(nlp, plan, model, merit_coeffs, x),
+                                cfg=cfg, minv0=minv0)
+
+    def trust_body(ts: _TrustState, ctx) -> _TrustState:
+        x_state, merit_coeffs, old_merit, model, prep, params, lb, ub = ctx
+        dtype = x_state.dtype
+        # Trust box = variable bounds clamped around the current iterate.
+        lb_box = torch.maximum(lb, x_state - ts.box_size[:, None])
+        ub_box = torch.minimum(ub, x_state + ts.box_size[:, None])
+        res = solve_qp_block_prepared(
+            prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_blk],
+            zb0=ts.z[:, m_blk:], yc0=ts.y[:, :m_blk], yb0=ts.y[:, m_blk:],
+            cfg=cfg)
+        new_x = res.x
+        qp_bad = ~torch.isfinite(new_x).all(-1)
+
+        model_cost = nlp_mod.structured_model_cost_total(nlp, model, new_x)
+        model_viols = nlp_mod.structured_model_cnt_viols(nlp, model, new_x)
+        model_merit = model_cost + (merit_coeffs * model_viols).sum(-1)
+        new_cost_vals = nlp_mod.eval_exact_costs(nlp, new_x, params)
+        new_cnt_viols = nlp_mod.eval_exact_cnt_viols(nlp, new_x, params)
+        new_merit = merit(new_cost_vals, new_cnt_viols, merit_coeffs)
+
+        approx_improve = old_merit - model_merit
+        exact_improve = old_merit - new_merit
+        ratio = exact_improve / approx_improve
+        exact_bad = ~torch.isfinite(new_merit)
+        small = approx_improve < sqp.min_approx_improve
+        small |= (approx_improve / old_merit) < sqp.min_approx_improve_frac
+        accept = (~small) & (exact_improve > 0) & \
+            (ratio >= sqp.improve_ratio_threshold) & (~exact_bad)
+        shrink = (~small) & (~accept)
+
+        # QP failure path (optimizers.cpp:817-842)
+        fails = ts.qp_fails + qp_bad.to(torch.int32)
+        last_try = fails >= sqp.max_qp_solver_failures
+        box_on_fail = torch.where(
+            fails == sqp.max_qp_solver_failures - 1,
+            torch.full_like(ts.box_size, sqp.min_trust_box_size),
+            ts.box_size * sqp.trust_shrink_ratio)
+        new_box = torch.where(
+            accept, ts.box_size * sqp.trust_expand_ratio,
+            torch.where(shrink, ts.box_size * sqp.trust_shrink_ratio,
+                        ts.box_size))
+
+        def code(c):
+            return torch.full_like(ts.outcome, c)
+
+        outcome = torch.where(
+            qp_bad,
+            torch.where(last_try, code(_QP_FAILED), code(_SHRINKING)),
+            torch.where(small, code(_CONVERGED_SMALL),
+                        torch.where(accept, code(_ACCEPTED),
+                                    code(_SHRINKING))))
+        take = (accept & ~qp_bad)[:, None]
+        keep = qp_bad[:, None]
+        return _TrustState(
+            box_size=torch.where(qp_bad, box_on_fail, new_box).to(dtype),
+            done=torch.where(qp_bad, last_try, small | accept),
+            outcome=outcome,
+            qp_fails=fails,
+            x=torch.where(take, new_x, ts.x),
+            cost_vals=torch.where(take, new_cost_vals, ts.cost_vals),
+            cnt_viols=torch.where(take, new_cnt_viols, ts.cnt_viols),
+            n_qp_solves=ts.n_qp_solves + 1,
+            n_func_evals=ts.n_func_evals + 1,
+            z=torch.where(keep, ts.z, res.z),
+            y=torch.where(keep, ts.y, res.y))
+
+    def trust_loop(state: _State, model, prep, params, lb, ub) -> _TrustState:
+        old_merit = merit(state.cost_vals, state.cnt_viols,
+                          state.merit_coeffs)
+        ts = _TrustState(
+            box_size=state.box_size,
+            done=torch.zeros_like(state.status, dtype=torch.bool),
+            outcome=torch.full_like(state.status, _SHRINKING),
+            qp_fails=torch.zeros_like(state.status),
+            x=state.x, cost_vals=state.cost_vals, cnt_viols=state.cnt_viols,
+            n_qp_solves=state.n_qp_solves, n_func_evals=state.n_func_evals,
+            z=state.z, y=state.y)
+        ctx = (state.x, state.merit_coeffs, old_merit, model, prep, params,
+               lb, ub)
+        while True:
+            # Bounded by box shrink like the reference's inner while, plus
+            # the static max_trust_iter cap on QP solves per step.
+            go = ((~ts.done) & (ts.box_size >= sqp.min_trust_box_size)
+                  & (ts.n_qp_solves - state.n_qp_solves
+                     < sqp.max_trust_iter))
+            anyone, idx = _live(go)
+            if not anyone:
+                return ts
+            ts = _put(ts, idx, trust_body(_take(ts, idx), _take(ctx, idx)))
+
+    def sqp_step(state: _State, params, lb, ub, jac_cache) -> _State:
+        model = nlp_mod.convexify_structured(nlp, state.x, params, jac_cache)
+        prep = block_prepare(model, state.merit_coeffs, state.x,
+                             minv0=state.minv if cfg.ns_refresh else None)
+        new_minv = prep.Minv if cfg.ns_refresh else state.minv
+        ts = trust_loop(state, model, prep, params, lb, ub)
+        dtype = state.x.dtype
+
+        if n_cnt == 0:
+            max_viol = state.x.new_zeros(state.x.shape[0])
+        else:
+            max_viol = torch.amax(ts.cnt_viols, -1)
+        viols_satisfied = max_viol < sqp.cnt_tolerance
+        iter_next = state.iter_in_round + 1
+        hit_iter_limit = iter_next >= sqp.max_iter
+
+        # "converged" paths -> penalty adjustment (optimizers.cpp:938-968)
+        conv = (ts.outcome == _CONVERGED_SMALL) | \
+            (ts.box_size < sqp.min_trust_box_size)
+        qp_failed = ts.outcome == _QP_FAILED
+        pen_done_ok = conv & viols_satisfied
+        last_round = state.merit_increases + 1 >= sqp.max_merit_coeff_increases
+        pen_escalate = conv & (~viols_satisfied)
+        pen_exhausted = pen_escalate & last_round
+        # Second-chance restart from the current iterate (max_restarts).
+        restart = pen_exhausted & (state.restarts_used < sqp.max_restarts)
+        pen_exhausted = pen_exhausted & (~restart)
+
+        coeffs = state.merit_coeffs
+        if sqp.inflate_constraints_individually and n_cnt > 0:
+            inflated = torch.where(
+                ts.cnt_viols > sqp.cnt_tolerance,
+                coeffs * sqp.merit_coeff_increase_ratio, coeffs)
+        else:
+            inflated = coeffs * sqp.merit_coeff_increase_ratio
+        new_coeffs = torch.where(pen_escalate[:, None], inflated, coeffs)
+        new_coeffs = torch.where(
+            restart[:, None],
+            torch.full_like(new_coeffs, sqp.restart_merit_coeff),
+            new_coeffs)
+
+        init_box = torch.full_like(ts.box_size, sqp.initial_trust_box_size)
+        if sqp.box_reset_to_initial:
+            box_reset = init_box
+        else:
+            box_reset = torch.maximum(
+                ts.box_size, torch.full_like(
+                    ts.box_size,
+                    sqp.min_trust_box_size / sqp.trust_shrink_ratio * 1.5))
+        new_box = torch.where(pen_escalate, box_reset, ts.box_size)
+        new_box = torch.where(restart, init_box, new_box)
+
+        # Iteration limit exits the whole solve (optimizers.cpp:922-934).
+        iter_exit = (~conv) & (~qp_failed) & hit_iter_limit
+
+        def code(c):
+            return torch.full_like(state.status, c)
+
+        status = state.status
+        status = torch.where(qp_failed, code(SQPStatus.FAILED), status)
+        status = torch.where(pen_done_ok, code(SQPStatus.CONVERGED), status)
+        status = torch.where(pen_exhausted,
+                             code(SQPStatus.PENALTY_ITERATION_LIMIT), status)
+        status = torch.where(
+            iter_exit,
+            torch.where(viols_satisfied, code(SQPStatus.CONVERGED),
+                        code(SQPStatus.SCO_ITERATION_LIMIT)),
+            status)
+        zero = torch.zeros_like(state.merit_increases)
+        return _State(
+            x=ts.x, cost_vals=ts.cost_vals, cnt_viols=ts.cnt_viols,
+            merit_coeffs=new_coeffs, box_size=new_box.to(dtype),
+            merit_increases=torch.where(
+                restart, zero,
+                state.merit_increases + pen_escalate.to(torch.int32)),
+            iter_in_round=torch.where(pen_escalate | restart, zero,
+                                      iter_next),
+            restarts_used=state.restarts_used + restart.to(torch.int32),
+            total_iter=state.total_iter + 1,
+            status=status,
+            n_qp_solves=ts.n_qp_solves, n_func_evals=ts.n_func_evals,
+            z=ts.z, y=ts.y, minv=new_minv)
+
+    def solve(x0: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
+              params: Any) -> SQPResult:
+        params = dict(params or {})
+        if params.get("restart_inits") is not None:
+            raise NotImplementedError(
+                "params['restart_inits'] (multi-start restart family) is "
+                "not ported yet")
+        B, dtype, dev = x0.shape[0], x0.dtype, x0.device
+        # getClosestFeasiblePoint (modeling.cpp:260): box-only projection.
+        x0 = torch.minimum(torch.maximum(x0, lb), ub)
+        jac_cache = nlp_mod.linear_jacobians(nlp, x0, params)
+        coeffs0 = x0.new_full((B, n_cnt), sqp.initial_merit_error_coeff)
+        if cfg.ns_refresh:
+            # Seed the carried KKT inverse with one Cholesky at the initial
+            # convexification; later steps refresh it by Newton-Schulz.
+            model0 = nlp_mod.convexify_structured(nlp, x0, params, jac_cache)
+            minv = block_prepare(model0, coeffs0, x0).Minv
+        else:
+            minv = x0.new_zeros(B, 0, 0)
+
+        def ints(v):
+            return torch.full((B,), v, dtype=torch.int32, device=dev)
+
+        state = _State(
+            x=x0,
+            cost_vals=nlp_mod.eval_exact_costs(nlp, x0, params),
+            cnt_viols=nlp_mod.eval_exact_cnt_viols(nlp, x0, params),
+            merit_coeffs=coeffs0,
+            box_size=x0.new_full((B,), sqp.initial_trust_box_size),
+            merit_increases=ints(0), iter_in_round=ints(0),
+            restarts_used=ints(0), total_iter=ints(0),
+            status=ints(SQPStatus.RUNNING), n_qp_solves=ints(0),
+            n_func_evals=ints(1),
+            z=x0.new_zeros(B, m_blk + n), y=x0.new_zeros(B, m_blk + n),
+            minv=minv)
+        lane = (params, lb, ub, jac_cache)
+        while True:
+            anyone, idx = _live(state.status == SQPStatus.RUNNING)
+            if not anyone:
+                break
+            state = _put(state, idx,
+                         sqp_step(_take(state, idx), *_take(lane, idx)))
+        return SQPResult(
+            x=state.x, status=state.status, cost_vals=state.cost_vals,
+            cnt_viols=state.cnt_viols, total_cost=state.cost_vals.sum(-1),
+            merit_coeffs=state.merit_coeffs, box_size=state.box_size,
+            n_iter=state.total_iter, n_qp_solves=state.n_qp_solves,
+            n_func_evals=state.n_func_evals)
+
+    return solve
