@@ -1,5 +1,6 @@
-"""Port on the card: the hand-written chunk kernel against its plain
-version, the wrapper's checks and launch count, and a small solve.
+"""Port on the card: the hand-written chunk kernels (block and dense)
+against their plain versions, the wrappers' checks and launch counts, and
+a small solve of each QP path.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -12,10 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from trajopt_tpu_torch.models.benchmarks import (pr2ish_table_batch,
+from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
+                                                 arm_table_problem,
+                                                 pr2ish_table_batch,
                                                  pr2ish_table_problem)
 from trajopt_tpu_torch.qp import block_banded as bb
 from trajopt_tpu_torch.qp import fused_block as fb
+from trajopt_tpu_torch.qp import fused_dense as fd
+from trajopt_tpu_torch.qp.inverse import cholesky_inverse
 from trajopt_tpu_torch.qp.admm import ADMMConfig
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
 
@@ -126,5 +131,103 @@ def test_small_solve_on_the_card(cuda):
     before = fb.COUNTER.launches
     res = solve(inits, {"goal": goals})
     assert fb.COUNTER.launches > before
+    assert (res.status == SQPStatus.CONVERGED).all()
+    assert torch.isfinite(res.x).all()
+
+
+DB, DN, DM = 5, 37, 61          # ragged: n and m not multiples of 32
+DKW = dict(sigma=1e-6, alpha=1.6, n_iters=40)
+
+
+def _dense_inputs(dev, seed=0):
+    """Seeded float32 dense-chunk operands: hard (inequality, equality with
+    rho 100, box) and penalty rows."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    m_c = DM - DN
+    A = np.concatenate([rng.standard_normal((DB, m_c, DN)),
+                        np.broadcast_to(np.eye(DN), (DB, DN, DN))], 1)
+    kind = rng.integers(0, 4, (DB, m_c))
+    bnd = rng.standard_normal((DB, m_c))
+    l = np.concatenate([np.where(kind >= 2, bnd, -np.inf),
+                        -np.ones((DB, DN))], 1)
+    u = np.concatenate([bnd, np.ones((DB, DN))], 1)
+    c = np.concatenate([np.where(kind % 2 == 0, np.inf,
+                                 rng.uniform(1, 50, (DB, m_c))),
+                        np.full((DB, DN), np.inf)], 1)
+    rho = np.where(np.isinf(c) & (u - l < 1e-10), 100.0, 0.1)
+    G = rng.standard_normal((DB, DN, DN)) / np.sqrt(DN)
+    At = torch.as_tensor(A, **f64)
+    M = (torch.as_tensor(G @ G.transpose(0, 2, 1) + np.eye(DN), **f64)
+         + At.transpose(1, 2) @ (torch.as_tensor(rho, **f64)[..., None] * At))
+    x = rng.standard_normal((DB, DN)) * 0.1
+    ops = [cholesky_inverse(M), At, rng.standard_normal((DB, DN)), l, u,
+           c / rho, rho, x, np.einsum("bmn,bn->bm", A, x),
+           rng.standard_normal((DB, DM)) * 0.01]
+    return [torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
+            for v in ops]
+
+
+def test_dense_kernel_matches_plain_version(cuda):
+    args = _dense_inputs(cuda)
+    args[2][3, 4] = float("nan")                 # a blown-up lane
+    before = fd.COUNTER.launches
+    got = fd.chunk_cuda(*args, **DKW)
+    assert fd.COUNTER.launches == before + 1
+    ref = fd.chunk_plain(*[a.double() for a in args], **DKW)
+    plain = fd.chunk_plain(*args, **DKW)
+    for g, r, p in zip(got, ref, plain):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        ok = ~torch.isnan(r)
+        err_k = (g[ok].double() - r[ok]).abs().max()
+        err_p = (p[ok].double() - r[ok]).abs().max()
+        # float32 sums in another order: within 4x the plain float32
+        # version's own distance to float64, plus 1e-6 of the magnitude
+        assert err_k <= 4 * err_p + 1e-6 * r[ok].abs().max()
+    assert all(torch.isnan(t[3]).all() for t in got)
+
+
+def test_dense_kernel_skips_inactive_lanes(cuda):
+    args = _dense_inputs(cuda, seed=1)
+    active = torch.arange(DB, device=cuda) % 2 == 0
+    full = fd.chunk_cuda(*args, **DKW)
+    out = fd.chunk(*args, **DKW, active=active)
+    for new, old, ref in zip(out[:3], args[7:], full[:3]):
+        assert torch.equal(new[~active], old[~active])
+        assert torch.equal(new[active], ref[active])
+    assert torch.isnan(out[3][~active]).all()
+
+
+def test_dense_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = _dense_inputs(cuda)
+    with pytest.raises(TypeError):
+        fd.chunk_cuda(*[a.double() for a in args], **DKW)
+    bad = list(args)
+    bad[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.chunk_cuda(*bad, **DKW)
+    bad[1] = args[1][:, :-1].contiguous()     # one row short of l, u, ...
+    with pytest.raises(ValueError, match="shape"):
+        fd.chunk_cuda(*bad, **DKW)
+    wide = [torch.zeros(1, 600, 600, device=cuda),
+            torch.zeros(1, 3, 600, device=cuda)]
+    wide += [torch.zeros(1, k, device=cuda) for k in (600, 3, 3, 3, 3)]
+    wide += [torch.zeros(1, 600, device=cuda), torch.zeros(1, 3, device=cuda),
+             torch.zeros(1, 3, device=cuda)]
+    with pytest.raises(ValueError, match="column range"):
+        fd.chunk_cuda(*wide, **DKW)
+
+
+def test_small_dense_solve_on_the_card(cuda):
+    prob, _ = arm_table_problem(n_steps=6)
+    # the arm7 workload's float32 QP settings (__graft_entry__._solver_params)
+    qp = ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=60, check_every=20,
+                    adaptive_rho=False, rho_dual_scale=0.1)
+    solve = prob.make_solve(SQPParams(max_restarts=1, qp=qp))
+    inits, goals = arm_table_batch(1, 4, 6)
+    assert inits.device.type == "cuda" and inits.dtype == torch.float32
+    before = fd.COUNTER.launches
+    res = solve(inits, {"goal": goals})
+    assert fd.COUNTER.launches > before
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()

@@ -283,8 +283,10 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     assert inits.dtype == torch.float64 and inits.device.type == "cpu"
     res = solve(inits, {"goal": goals})
     assert res.x.shape == (2, 32) and res.x.dtype == torch.float64
-    with pytest.raises(NotImplementedError):
-        bare.make_solve(device="cpu")        # dense path not ported
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bare.make_solve()                    # the dense path, too
+    res = bare.make_solve(device="cpu")(inits, {"goal": goals})
+    assert res.x.shape == (2, 32) and res.x.dtype == torch.float64
 
 
 def test_import_leaves_jax_out():

@@ -1,10 +1,13 @@
 """Collision scene: link-attached and static primitives, pair lists, and
-batched swept (cast) signed-distance queries with joint-space Jacobians.
+batched discrete and swept (cast) signed-distance queries with joint-space
+Jacobians.
 
 Counterpart of ``trajopt_tpu/collision/world.py``, primitive subset
 (sphere, capsule, box).  The candidate pair list is static, built on the
 host in numpy; the narrowphase runs one batched kernel call per
-(kind, kind) group over any leading batch shape.
+(kind, kind) group over any leading batch shape.  Both queries take link
+poses from ``tree.fk`` / ``tree.fk_with_axes`` rather than configurations,
+so a caller batches them over lanes, steps and sub-segments at once.
 
 Per-pair gradients: the JAX package takes ``jax.value_and_grad`` of a
 scalar kernel per pair under ``vmap``.  Here each group's kernel runs on
@@ -152,6 +155,8 @@ class CollisionScene:
             raise ValueError(f"unsupported geometry kind {g.kind!r}")
         self.geoms.append(g)
         self._swept_cache = None
+        self._groups_cache = None
+        self._tensor_cache = None
         return self
 
     def add_world_box(self, name, half_extents, center=(0, 0, 0), R=None):
@@ -305,12 +310,36 @@ class CollisionScene:
         mv, st = pack(moving), pack(static)
         order = np.concatenate([g[1] for g in mv + st])
         self._swept_cache = (mv, st, np.argsort(order))
-        self._tensor_cache = {}
         return self._swept_cache
+
+    def _pair_groups(self):
+        """Static per-type grouping for the discrete narrowphase: a list of
+        (key, idxs, a, b) with the lower-ranked kind on side ``a`` (sphere <
+        capsule < box) and box pairs that are not mutually axis-aligned
+        under (BOX, "obb"), plus the inverse permutation back to pair
+        order."""
+        if getattr(self, "_groups_cache", None) is not None:
+            return self._groups_cache
+        groups: dict = {}
+        for idx, (ga, gb) in enumerate(self.pairs()):
+            if _RANK[ga.kind] > _RANK[gb.kind]:
+                ga, gb = gb, ga
+            key = (ga.kind, gb.kind)
+            if key == (BOX, BOX) and not self._boxbox_aligned(ga, gb):
+                key = (BOX, "obb")
+            groups.setdefault(key, []).append((idx, ga, gb))
+        out = [(key, np.array([i for i, _, _ in items]),
+                self._geom_arrays([ga for _, ga, _ in items]),
+                self._geom_arrays([gb for _, _, gb in items]))
+               for key, items in groups.items()]
+        order = np.concatenate([g[1] for g in out])
+        self._groups_cache = (out, np.argsort(order))
+        return self._groups_cache
 
     def _tensors(self, arrs, like: torch.Tensor):
         """Group arrays as tensors on ``like``'s device/dtype (cached)."""
-        self._swept_groups()
+        if getattr(self, "_tensor_cache", None) is None:
+            self._tensor_cache = {}
         key = (id(arrs), like.device, like.dtype)
         if key not in self._tensor_cache:
             dev, dt = like.device, like.dtype
@@ -364,6 +393,51 @@ class CollisionScene:
 
     def _assemble(self, parts, inv_perm):
         return torch.cat(parts, -1)[..., inv_perm]
+
+    def distances(self, fk) -> torch.Tensor:
+        """[..., n_pairs] signed distances at link poses ``fk = (R, p)``
+        from ``tree.fk`` (the JAX function takes one configuration q)."""
+        R, p = fk[0], fk[1]
+        groups, inv_perm = self._pair_groups()
+        parts = []
+        for key, _, a, b in groups:
+            ta, tb = self._tensors(a, R), self._tensors(b, R)
+            parts.append(self._group_distance(key, ta, tb,
+                                              self._posed(ta, R, p),
+                                              self._posed(tb, R, p)))
+        return self._assemble(parts, torch.as_tensor(inv_perm,
+                                                     device=R.device))
+
+    def distances_and_jac(self, fk):
+        """(ds [..., P], J [..., P, n_dof]) at link poses and joint axes
+        ``fk = (R, p, z, o)`` from ``tree.fk_with_axes``: each pair's
+        gradient w.r.t. its two link poses, composed through the
+        geometric-Jacobian relations."""
+        R, p, z, o = fk
+        zxo = geom.cross(z, o)
+        is_rev = torch.as_tensor(self.tree._active_types() == 0,
+                                 device=R.device)
+        groups, inv_perm = self._pair_groups()
+        ds, Js = [], []
+        with torch.enable_grad():
+            for key, _, a, b in groups:
+                ta, tb = self._tensors(a, R), self._tensors(b, R)
+                leaves = [_leaf(v) for v in (*self._link_poses(ta, R, p),
+                                             *self._link_poses(tb, R, p))]
+                Ra, pa, Rb, pb = leaves
+                d = self._group_distance(
+                    key, ta, tb,
+                    _pose_geom(Ra, pa, ta["R"], ta["p"], ta["ea"], ta["eb"]),
+                    _pose_geom(Rb, pb, tb["R"], tb["p"], tb["ea"], tb["eb"]))
+                g = _grads(d, leaves)
+                Ra, pa, Rb, pb = (v.detach() for v in leaves)
+                ds.append(d.detach())
+                Js.append(self._compose_pose_grads(g[0], g[1], Ra, pa, ta, z,
+                                                   zxo, is_rev)
+                          + self._compose_pose_grads(g[2], g[3], Rb, pb, tb,
+                                                     z, zxo, is_rev))
+        ip = torch.as_tensor(inv_perm, device=R.device)
+        return self._assemble(ds, ip), torch.cat(Js, -2)[..., ip, :]
 
     def swept_distances(self, fk0, fk1) -> torch.Tensor:
         """[..., n_pairs] signed distances of geometry swept between two

@@ -1,0 +1,67 @@
+"""Building and counting the hand-written CUDA kernels of ``csrc/``.
+
+Each kernel is one ``.cu`` file with a plain C interface, compiled by
+``nvcc`` for ``sm_90a`` into a shared library at first use (one build per
+source and flag hash, into ``trajopt_tpu_torch/_build/``) and loaded with
+``ctypes`` by its wrapper module (``qp/fused_block.py``,
+``qp/fused_dense.py``).  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SMEM_LIMIT = 232_448       # bytes of shared memory a Hopper block may use
+
+
+class LaunchCounter:
+    """Counts kernel launches (incremented only where the kernel is
+    launched, never by the plain version)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def reset(self):
+        self.launches = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_library(source: Path, verbose: bool = False) -> Path:
+    """Compile ``source`` (once per source and flag hash) and return the
+    library path.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints
+    its report (registers, shared memory, spills)."""
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(source)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} "
+                           f"({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr.strip())
+    os.replace(tmp, out)
+    return out

@@ -1,9 +1,11 @@
-"""Benchmark problem builders: the pr2ish arm-around-table cast workload.
+"""Benchmark problem builders: the pr2ish arm-around-table cast workload
+and the arm7 table workload.
 
-Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``
-and ``pr2ish_table_batch``), plus :func:`swept_verify`, the independent
-post-solve swept-clearance check of the repository's ``bench.py``.  Goals
-come from a numpy seed (the JAX builders draw them with ``jax.random``).
+Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``,
+``pr2ish_table_batch``, ``arm_table_problem`` and ``arm_table_batch``),
+plus :func:`swept_verify`, the independent post-solve swept-clearance check
+of the repository's ``bench.py``.  Goals come from a numpy seed (the JAX
+builders draw them with ``jax.random``).
 """
 
 from __future__ import annotations
@@ -13,11 +15,62 @@ import torch
 
 from trajopt_tpu_torch import resolve_device, resolve_dtype
 from trajopt_tpu_torch.collision.world import CollisionScene
-from trajopt_tpu_torch.models.robots import pr2ish, pr2ish_scene
+from trajopt_tpu_torch.models.robots import (arm7, arm7_scene, pr2ish,
+                                             pr2ish_scene)
 from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
                                                   interpolated_init)
 from trajopt_tpu_torch.terms.collision import collision_term
 from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
+
+ARM7_HOME = np.array([-0.5, 1.0, 0.0, -1.2, 0.0, 0.8, 0.0])
+ARM7_GOAL = np.array([0.9, 1.0, 0.0, -1.2, 0.0, 0.8, 0.0])
+# Goal noise per joint: small on the shoulder/elbow joints that place the
+# arm relative to the post (keeps sampled goals collision-free), larger on
+# the wrist joints.
+ARM7_GOAL_SCALE = np.array([0.05, 0.03, 0.05, 0.05, 0.1, 0.1, 0.3])
+
+
+def arm_table_problem(n_steps: int = 30, *, evaluator: str = "discrete",
+                      margin: float = 0.025, coeff: float = 20.0,
+                      lvs_substeps: int = 3, device=None,
+                      ) -> tuple[TrajOptProblem, CollisionScene]:
+    """7-DOF arm reaching across a table post: joint_vel smoothing cost,
+    goal joint-pose equality constraint (params key ``'goal'``) and
+    collision inequality constraints (8 pairs, all steps but the fixed
+    first).  The problem solves on ``device`` (None: CUDA, raising when
+    there is none)."""
+    tree = arm7()
+    scene = arm7_scene()
+    prob = TrajOptProblem(n_steps=n_steps, n_dof=7, joint_lower=tree.lower,
+                          joint_upper=tree.upper, fixed_steps=[0],
+                          device=resolve_device(device))
+    prob.add_term(joint_vel(n_steps, 7, is_cost=True, coeffs=np.full(7, 5.0)))
+    prob.add_term(joint_pos(n_steps, 7, is_cost=False, targets="goal",
+                            first_step=n_steps - 1, last_step=n_steps - 1))
+    prob.add_term(collision_term(
+        scene, n_steps, margin=margin, coeff=coeff, is_cost=False,
+        evaluator=evaluator, fixed_steps=[0], lvs_substeps=lvs_substeps))
+    return prob, scene
+
+
+def arm7_goals(seed: int, batch: int) -> np.ndarray:
+    """[batch, 7] goals: ARM7_GOAL plus seeded normal noise, clipped 0.05
+    inside the joint limits."""
+    noise = ARM7_GOAL_SCALE * np.random.default_rng(seed).standard_normal(
+        (batch, 7))
+    tree = arm7()
+    return np.clip(ARM7_GOAL[None, :] + noise, tree.lower + 0.05,
+                   tree.upper - 0.05)
+
+
+def arm_table_batch(seed: int, batch: int, n_steps: int = 30, dtype=None,
+                    device=None):
+    """(inits [B, n_steps, 7], goals [B, 7]): randomized goals around
+    ARM7_GOAL from a numpy seed and straight-line inits from ARM7_HOME, on
+    ``device`` (None: CUDA, raising when there is none)."""
+    return _table_batch(arm7_goals(seed, batch), ARM7_HOME, n_steps, dtype,
+                        device)
+
 
 PR2ISH_HOME = np.array([0.05, -1.9, 1.2, -1.0, -1.4, 0.0, -0.6, 0.0])
 PR2ISH_GOAL = np.array([0.15, -0.3, 0.3, -0.5, -0.9, 0.0, -1.0, 0.0])
@@ -68,13 +121,17 @@ def pr2ish_table_batch(seed: int, batch: int, n_steps: int = 30,
     """(inits [B, n_steps, 8], goals [B, 8]): randomized goals around
     PR2ISH_GOAL from a numpy seed and straight-line inits from home, on
     ``device`` (None: CUDA, raising when there is none)."""
+    return _table_batch(pr2ish_goals(seed, batch), PR2ISH_HOME, n_steps,
+                        dtype, device)
+
+
+def _table_batch(goals: np.ndarray, home: np.ndarray, n_steps, dtype,
+                 device):
     dev = resolve_device(device)
     dtype = resolve_dtype(dev, dtype)
-    goals = torch.as_tensor(pr2ish_goals(seed, batch), dtype=dtype,
-                            device=dev)
-    home = torch.as_tensor(PR2ISH_HOME, dtype=dtype, device=dev)
-    inits = interpolated_init(home.expand_as(goals), goals, n_steps)
-    return inits, goals
+    goals = torch.as_tensor(goals, dtype=dtype, device=dev)
+    home = torch.as_tensor(home, dtype=dtype, device=dev)
+    return interpolated_init(home.expand_as(goals), goals, n_steps), goals
 
 
 def swept_verify(scene: CollisionScene, traj: torch.Tensor,

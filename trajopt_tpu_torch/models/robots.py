@@ -1,7 +1,8 @@
 """Bundled robot models: kinematic trees + collision scenes.
 
-Counterpart of ``trajopt_tpu/models/robots.py`` for the pr2ish fixture;
-the URDF is the port's own copy under ``trajopt_tpu_torch/data/``.
+Counterpart of ``trajopt_tpu/models/robots.py`` for the pr2ish and arm7
+fixtures; the URDFs are the port's own copies under
+``trajopt_tpu_torch/data/``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,33 @@ from trajopt_tpu_torch.kinematics.chain import KinematicTree, build_tree
 from trajopt_tpu_torch.kinematics.urdf import load_urdf
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
+
+
+@functools.lru_cache
+def arm7() -> KinematicTree:
+    """7-DOF revolute arm (the benchmark's '7-DOF basic-cartesian' robot)."""
+    return build_tree(load_urdf(os.path.join(DATA_DIR, "arm7.urdf")))
+
+
+def arm7_scene(world_objects: bool = True) -> CollisionScene:
+    """arm7 with a capsule decomposition of its links, optionally in the
+    table scene (table slab + a post across the benchmark swing arc); no
+    self-collision, 8 candidate pairs."""
+    tree = arm7()
+    s = CollisionScene(tree, check_self_collision=False)
+    # Capsules along each structural segment (z-offsets match arm7.urdf).
+    s.add_link_capsule("base_link", 0.10, [0, 0, 0.0], [0, 0, 0.30])
+    s.add_link_capsule("link_2", 0.08, [0, 0, 0.10], [0, 0, 0.36])
+    s.add_link_capsule("link_4", 0.07, [0, 0, 0.0], [0, 0, 0.36])
+    s.add_link_capsule("link_6", 0.06, [0, 0, 0.0], [0, 0, 0.10])
+    s.add_link_sphere("link_7", 0.05, [0, 0, 0.08])
+    if world_objects:
+        s.add_world_box("table", [0.35, 0.5, 0.05], [0.55, 0.0, 0.25])
+        s.add_world_box("post", [0.05, 0.05, 0.30], [0.39, 0.03, 1.00])
+    # The base capsule cannot reach the world objects (an ACM entry).
+    s.disabled_pairs.add(("base_link_capsule", "table"))
+    s.disabled_pairs.add(("base_link_capsule", "post"))
+    return s
 
 
 @functools.lru_cache

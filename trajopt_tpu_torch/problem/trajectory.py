@@ -102,8 +102,9 @@ class TrajOptProblem:
         ``init_traj [B, n_steps, n_dof_total]`` (or ``[B, n]``), ``params``
         a dict of per-lane arrays.  Runs on ``device``, else the problem's
         device, else CUDA (raising when there is none); float32 on the
-        card, float64 on the CPU.  Only ``structured=True`` (the
-        block-banded QP) is ported."""
+        card, float64 on the CPU.  ``structured=True`` solves the QPs on
+        the block-banded path (needs banded Jacobians on every constraint
+        and penalty set), the default on the dense path."""
         nlp = self.build()
         solver = make_solver(nlp, sqp=sqp, structured=structured)
         dev = resolve_device(device if device is not None else self.device)
@@ -120,6 +121,22 @@ class TrajOptProblem:
         return solve
 
 
+def _append_dt(traj, dt: float | None):
+    if dt is None:
+        return traj
+    return torch.cat([traj, torch.full_like(traj[..., :1], 1.0 / dt)], -1)
+
+
+def stationary_init(current, n_steps: int, dt: float | None = None):
+    """InitInfo::STATIONARY: the current state ``[..., n_dof]`` repeated
+    over ``[..., n_steps, n_dof]`` (plus the 1/dt column when ``dt`` is
+    given)."""
+    current = torch.as_tensor(current)
+    traj = current[..., None, :].expand(*current.shape[:-1], n_steps,
+                                        current.shape[-1])
+    return _append_dt(traj.clone(), dt)
+
+
 def interpolated_init(start, end, n_steps: int, dt: float | None = None):
     """InitInfo::JOINT_INTERPOLATED: linspace start -> end.  ``start`` and
     ``end`` are ``[..., n_dof]`` tensors; returns ``[..., n_steps, n_dof]``
@@ -127,6 +144,4 @@ def interpolated_init(start, end, n_steps: int, dt: float | None = None):
     w = torch.linspace(0.0, 1.0, n_steps, dtype=start.dtype,
                        device=start.device)[:, None]
     traj = start[..., None, :] * (1.0 - w) + end[..., None, :] * w
-    if dt is None:
-        return traj
-    return torch.cat([traj, torch.full_like(traj[..., :1], 1.0 / dt)], -1)
+    return _append_dt(traj, dt)

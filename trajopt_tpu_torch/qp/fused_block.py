@@ -18,37 +18,15 @@ kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from trajopt_tpu_torch import kernels
 from trajopt_tpu_torch.qp import block_banded as bb
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "admm_block_chunk.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SMEM_LIMIT = 232_448       # bytes of shared memory a Hopper block may use
-
-
-class LaunchCounter:
-    """Counts kernel launches (incremented only where the kernel is
-    launched, never by the plain version)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self):
-        self.launches = 0
-
-
-COUNTER = LaunchCounter()
+SOURCE = kernels.CSRC / "admm_block_chunk.cu"
+COUNTER = kernels.LaunchCounter()
 _LIB = None
 
 
@@ -60,35 +38,10 @@ class ChunkStats(NamedTuple):
     pAty_n: torch.Tensor
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA chunk kernel cannot be built")
-
-
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False):
     """Compile the kernel (once per source hash) and return the library
-    path.  ``verbose`` adds ``-Xptxas -v`` and prints its report."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libadmm_block_chunk_{tag}.so"
-    if out.exists() and not verbose:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    path; see ``kernels.build_library``."""
+    return kernels.build_library(SOURCE, verbose)
 
 
 def _lib():
@@ -204,9 +157,9 @@ def chunk_cuda(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
                          f"ownership ({mc.value}, {mr.value} x "
                          f"{threads.value})")
     smem = lib.admm_block_chunk_smem(T, D, K, R)
-    if smem > SMEM_LIMIT:
+    if smem > kernels.SMEM_LIMIT:
         raise ValueError(f"shape needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT})")
+                         f"(> {kernels.SMEM_LIMIT})")
     outs = [torch.empty_like(t) for t in (x, zc, zb, yc, yb)]
     stats = torch.empty(B, 5, dtype=torch.float32, device=dev)
     act = None

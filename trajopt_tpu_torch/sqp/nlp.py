@@ -9,8 +9,9 @@ come from ``torch.func.jacrev``; collision terms supply analytic banded
 Jacobians.
 
 Ported: ``Kind``, ``TermSet``, ``Nlp``, the residual/Jacobian helpers, the
-exact evaluations and the structured (banded) path the block QP consumes.
-The dense ``convexify`` path and generic (non least-squares) costs wait.
+exact evaluations, the dense ``convexify`` / ``ConvexModel`` path the dense
+QP consumes and the structured (banded) path the block QP consumes.
+Generic (non least-squares) costs and ``_psd_project`` wait.
 """
 
 from __future__ import annotations
@@ -187,11 +188,15 @@ def _group_reduce(viol_rows: torch.Tensor, t: TermSet) -> torch.Tensor:
 
 
 def _convexify_costs(nlp: Nlp, x, params, jac_cache, *, pen_rows: bool):
-    """Quadratize the cost sets at x -> (P [B,n,n], q [B,n], c0 [B])."""
+    """Quadratize the cost sets at x -> (P [B,n,n], q [B,n], c0 [B], and
+    the affine cost rows as lists of A [B,rows,n], b and w [B,rows]).
+    ``pen_rows=False`` skips the abs/hinge sets (the structured path
+    re-derives their rows bandedly)."""
     B, n = x.shape
     P = x.new_zeros(B, n, n)
     q = x.new_zeros(B, n)
     c0 = x.new_zeros(B)
+    A_rows, b_rows, w_rows = [], [], []
     index_of = {id(t): i for i, t in enumerate(nlp.term_sets)}
     for t in nlp.cost_sets:
         if (not pen_rows) and t.kind in PENALTY_COST_KINDS:
@@ -202,12 +207,15 @@ def _convexify_costs(nlp: Nlp, x, params, jac_cache, *, pen_rows: bool):
         r, J = _residual_and_jac(t, x, params, jac_cache, index_of[id(t)])
         b = r - (J @ x[..., None])[..., 0]
         w = _weights(t, params, x)
+        A_rows.append(J)
+        b_rows.append(b)
+        w_rows.append(w)
         if t.kind is Kind.COST_SQ:
             JW = J * w[..., None]
             P = P + 2.0 * (J.transpose(-1, -2) @ JW)
             q = q + 2.0 * (JW.transpose(-1, -2) @ b[..., None])[..., 0]
             c0 = c0 + (w * b * b).sum(-1)
-    return P, q, c0
+    return P, q, c0, A_rows, b_rows, w_rows
 
 
 def _interval_dist(v, l, u):
@@ -241,6 +249,99 @@ def eval_exact_cnt_viols(nlp: Nlp, x, params) -> torch.Tensor:
         rows = torch.abs(r) if t.kind is Kind.CNT_EQ \
             else torch.maximum(r, r.new_zeros(()))
         vals.append(_group_reduce(rows, t))
+    return torch.cat(vals, -1) if vals else x.new_zeros(x.shape[0], 0)
+
+
+# ----------------------------------------------------------------------
+# Dense convexification: consumed by the dense QP path.
+
+class ConvexModel(NamedTuple):
+    """Convexified problem at a linearization point, batched.
+
+    Cost rows (squared and penalty) are affine rows ``a(x) = A_cost x +
+    b_cost``; (P, q, c0) is the quadratic of the squared rows.  Constraint
+    rows are ``g(x) ~ A_cnt x + b_cnt`` with interval bounds [l_cnt, u_cnt]
+    (CNT_EQ -> [0, 0], CNT_INEQ -> [-inf, 0])."""
+
+    P: torch.Tensor       # [B, n, n]
+    q: torch.Tensor       # [B, n]
+    c0: torch.Tensor      # [B]
+    A_cost: torch.Tensor  # [B, m_cost, n] all cost rows
+    b_cost: torch.Tensor  # [B, m_cost]
+    w_cost: torch.Tensor  # [B, m_cost] per-row weights
+    A_cnt: torch.Tensor   # [B, m_cnt, n]
+    b_cnt: torch.Tensor   # [B, m_cnt]
+    l_cnt: torch.Tensor   # [B, m_cnt]
+    u_cnt: torch.Tensor   # [B, m_cnt]
+
+
+def _cat_rows(rows, like: torch.Tensor, width: int | None = None):
+    if rows:
+        return torch.cat(rows, 1)
+    shape = (like.shape[0], 0) if width is None else (like.shape[0], 0,
+                                                      width)
+    return like.new_zeros(shape)
+
+
+def convexify(nlp: Nlp, x, params, jac_cache=None) -> ConvexModel:
+    """Linearize/quadratize every term set at x (one convexifyCosts +
+    convexifyConstraints pass of the SQP loop) with dense Jacobians."""
+    n = nlp.n
+    index_of = {id(t): i for i, t in enumerate(nlp.term_sets)}
+    P, q, c0, A_cost, b_cost, w_cost = _convexify_costs(
+        nlp, x, params, jac_cache, pen_rows=True)
+    A_cnt, b_cnt, l_cnt, u_cnt = [], [], [], []
+    for t in nlp.cnt_sets:
+        r, J = _residual_and_jac(t, x, params, jac_cache, index_of[id(t)])
+        A_cnt.append(J)
+        b_cnt.append(r - (J @ x[..., None])[..., 0])
+        zeros = x.new_zeros(x.shape[0], t.n_rows)
+        l_cnt.append(zeros if t.kind is Kind.CNT_EQ
+                     else torch.full_like(zeros, -float("inf")))
+        u_cnt.append(zeros)
+    return ConvexModel(
+        P=P, q=q, c0=c0, A_cost=_cat_rows(A_cost, x, n),
+        b_cost=_cat_rows(b_cost, x), w_cost=_cat_rows(w_cost, x),
+        A_cnt=_cat_rows(A_cnt, x, n), b_cnt=_cat_rows(b_cnt, x),
+        l_cnt=_cat_rows(l_cnt, x), u_cnt=_cat_rows(u_cnt, x))
+
+
+def eval_model_costs(nlp: Nlp, model: ConvexModel, x) -> torch.Tensor:
+    """Per-cost-set convex model values [B, n_cost_sets] at x."""
+    a = (model.A_cost @ x[..., None])[..., 0] + model.b_cost
+    vals = []
+    for t, sl in cost_row_structure(nlp):
+        w, rows = model.w_cost[:, sl], a[:, sl]
+        if t.kind is Kind.COST_SQ:
+            vals.append((w * rows * rows).sum(-1))
+        elif t.kind is Kind.COST_ABS:
+            vals.append((w * torch.abs(rows)).sum(-1))
+        else:  # COST_HINGE
+            vals.append((w * torch.clamp_min(rows, 0.0)).sum(-1))
+    return torch.stack(vals, -1) if vals else x.new_zeros(x.shape[0], 0)
+
+
+def model_cost_total(nlp: Nlp, model: ConvexModel, x) -> torch.Tensor:
+    """[B] total convex cost model at x: the quadratic part plus the
+    abs/hinge penalty rows."""
+    total = 0.5 * (x * (model.P @ x[..., None])[..., 0]).sum(-1) \
+        + (model.q * x).sum(-1) + model.c0
+    a = (model.A_cost @ x[..., None])[..., 0] + model.b_cost
+    for t, sl in cost_row_structure(nlp):
+        if t.kind is Kind.COST_ABS:
+            total = total + (model.w_cost[:, sl] * torch.abs(a[:, sl])).sum(-1)
+        elif t.kind is Kind.COST_HINGE:
+            total = total + (model.w_cost[:, sl]
+                             * torch.clamp_min(a[:, sl], 0.0)).sum(-1)
+    return total
+
+
+def eval_model_cnt_viols(nlp: Nlp, model: ConvexModel, x) -> torch.Tensor:
+    """Per-group violations [B, num_cnt_groups] of the linearized
+    constraints at x."""
+    g = (model.A_cnt @ x[..., None])[..., 0] + model.b_cnt
+    d = _interval_dist(g, model.l_cnt, model.u_cnt)
+    vals = [_group_reduce(d[:, sl], t) for t, sl, _ in cnt_group_structure(nlp)]
     return torch.cat(vals, -1) if vals else x.new_zeros(x.shape[0], 0)
 
 
@@ -296,7 +397,8 @@ def convexify_structured(nlp: Nlp, x, params, jac_cache=None
     """Quadratic cost model plus banded constraint/penalty rows at x."""
     B, n = x.shape
     _, w = structured_band(nlp)
-    P, q, c0 = _convexify_costs(nlp, x, params, jac_cache, pen_rows=False)
+    P, q, c0, _, _, _ = _convexify_costs(nlp, x, params, jac_cache,
+                                         pen_rows=False)
     W_rows, b_rows, l_rows, u_rows, pen_rows, penw_rows = [], [], [], [], [], []
     inf = float("inf")
     for t in structured_sets(nlp):

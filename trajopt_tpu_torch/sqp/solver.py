@@ -1,10 +1,11 @@
 """Trust-region SQP with L1 exact-penalty outer loop, on batches of lanes.
 
-Counterpart of ``trajopt_tpu/sqp/solver.py`` (``make_solver``), block-banded
-QP branch: the algorithm of ``sco::BasicTrustRegionSQP::optimize()`` as
-three nested loops -- penalty escalation, SQP convexification and the
-trust-region accept/reject loop -- with the ADMM warm start and the KKT
-inverse carried across iterations.
+Counterpart of ``trajopt_tpu/sqp/solver.py`` (``make_solver``), dense and
+block-banded QP branches: the algorithm of
+``sco::BasicTrustRegionSQP::optimize()`` as three nested loops -- penalty
+escalation, SQP convexification and the trust-region accept/reject loop --
+with the ADMM warm start (and, on the block path, the KKT inverse) carried
+across iterations.
 
 The JAX solver is written per problem and batched by ``vmap`` over its
 ``lax.while_loop``s, so a lane whose loop condition is false keeps its
@@ -13,10 +14,10 @@ every loop runs while any lane is live; each pass gathers the live lanes,
 steps them, and scatters the results back.  Lanes never mix, so a lane's
 result does not depend on its neighbours, exactly as under ``vmap``.
 
-Not ported yet: the dense and gather-banded QP paths (``structured=False``
-or a layout that is not step-aligned), the IPM QP, callbacks, the
-saturated-dual rescale (``rescale_duals_on_escalation``) and the
-multi-start ``params["restart_inits"]`` family.
+Not ported yet: the gather-banded QP path (``structured=True`` with a
+layout that is not step-aligned), the IPM QP, callbacks, the saturated-dual
+rescale (``rescale_duals_on_escalation``) and the multi-start
+``params["restart_inits"]`` family.
 """
 
 from __future__ import annotations
@@ -24,12 +25,14 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from trajopt_tpu_torch.qp import block_banded as bb
+from trajopt_tpu_torch.qp.admm import QPData, solve_qp
 from trajopt_tpu_torch.qp.admm_block import (BlockQP, prepare_qp_block,
                                              solve_qp_block_prepared)
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
-from trajopt_tpu_torch.sqp.nlp import Nlp, StructuredModel
+from trajopt_tpu_torch.sqp.nlp import ConvexModel, Nlp, StructuredModel
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
 
 
@@ -59,7 +62,7 @@ class _State(NamedTuple):
     status: torch.Tensor
     n_qp_solves: torch.Tensor
     n_func_evals: torch.Tensor
-    z: torch.Tensor             # ADMM warm start [B, m_blk + n]
+    z: torch.Tensor             # ADMM warm start [B, m_qp]
     y: torch.Tensor
     minv: torch.Tensor          # [B, n, n] carried KKT inverse ([B, 0, 0]
     #                             when the Newton-Schulz refresh is off)
@@ -141,6 +144,50 @@ def _structured_cnt_coeffs(nlp: Nlp, merit_coeffs: torch.Tensor):
                      -1)
 
 
+def _penalty_cost_rows(nlp: Nlp, model: ConvexModel):
+    """QP rows of the abs/hinge cost sets: (A [B,rows,n], l, u, c
+    [B,rows]) on a(x) = A x + b; squared rows live in (P, q)."""
+    A_rows, l_rows, u_rows, c_rows = [], [], [], []
+    for t, sl in nlp_mod.cost_row_structure(nlp):
+        if t.kind not in nlp_mod.PENALTY_COST_KINDS:
+            continue
+        b = model.b_cost[:, sl]
+        A_rows.append(model.A_cost[:, sl])
+        l_rows.append(-b if t.kind is nlp_mod.Kind.COST_ABS
+                      else torch.full_like(b, -float("inf")))
+        u_rows.append(-b)
+        c_rows.append(model.w_cost[:, sl])
+    like = model.q
+    return (nlp_mod._cat_rows(A_rows, like, nlp.n),
+            *(nlp_mod._cat_rows(r, like) for r in (l_rows, u_rows, c_rows)))
+
+
+def num_qp_rows(nlp: Nlp) -> int:
+    """Dense QP rows: constraint rows + abs/hinge cost rows + n box rows."""
+    m_cnt = sum(t.n_rows for t in nlp.cnt_sets)
+    m_pen = sum(t.n_rows for t in nlp.cost_sets
+                if t.kind in nlp_mod.PENALTY_COST_KINDS)
+    return m_cnt + m_pen + nlp.n
+
+
+def build_qp(nlp: Nlp, model: ConvexModel, merit_coeffs: torch.Tensor,
+             lb_box: torch.Tensor, ub_box: torch.Tensor) -> QPData:
+    """The dense trust-region QP: constraint rows weighted by their group's
+    merit coefficient, abs/hinge cost rows by their weight, then the hard
+    box rows [lb_box, ub_box]; constraint rows bound z = A x in
+    [l - b, u - b]."""
+    A_pen, l_pen, u_pen, c_pen = _penalty_cost_rows(nlp, model)
+    B, n = model.q.shape
+    eye = torch.eye(n, dtype=model.q.dtype, device=model.q.device)
+    return QPData(
+        P=model.P, q=model.q,
+        A=torch.cat([model.A_cnt, A_pen, eye.expand(B, n, n)], 1),
+        l=torch.cat([model.l_cnt - model.b_cnt, l_pen, lb_box], -1),
+        u=torch.cat([model.u_cnt - model.b_cnt, u_pen, ub_box], -1),
+        c=torch.cat([_cnt_row_coeffs(nlp, merit_coeffs), c_pen,
+                     torch.full_like(lb_box, float("inf"))], -1))
+
+
 def block_qp(nlp: Nlp, plan: bb.BlockPlan, model: StructuredModel,
              merit_coeffs: torch.Tensor, x: torch.Tensor) -> BlockQP:
     """The box-independent block QP of a structured model: constraint
@@ -161,35 +208,42 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
                 structured: bool = False):
     """Build ``solve(x0 [B, n], lb [B, n], ub [B, n], params) -> SQPResult``
     for a fixed problem structure; ``params`` is a dict of per-lane
-    tensors with a leading ``B`` axis."""
-    if not structured:
-        raise NotImplementedError(
-            "only the structured block-banded QP path is ported; pass "
-            "structured=True")
-    if sqp.qp_algorithm != "admm":
-        raise NotImplementedError("only the ADMM QP is ported")
+    tensors with a leading ``B`` axis.  ``structured=False`` solves each
+    trust-region QP densely (``qp/admm.py``); ``structured=True`` on the
+    block-banded QP (``qp/admm_block.py``)."""
+    if sqp.qp_algorithm not in ("admm", "ipm"):
+        raise ValueError(f"unknown qp_algorithm {sqp.qp_algorithm!r}")
+    if sqp.qp_algorithm == "ipm":
+        raise NotImplementedError("qp_algorithm='ipm' (the dense "
+                                  "interior-point QP) is not ported yet")
     if sqp.rescale_duals_on_escalation:
         raise NotImplementedError(
             "rescale_duals_on_escalation is not ported yet")
-    if not nlp_mod.supports_structured(nlp):
-        missing = [t.name for t in nlp_mod.structured_sets(nlp)
-                   if t.banded_jac is None]
-        raise ValueError(f"structured=True requires banded_jac on all "
-                         f"constraint/penalty sets; missing on {missing}")
-    if nlp.block is None:
-        raise NotImplementedError("the gather-banded QP path (no (T, D) "
-                                  "block layout) is not ported")
-    starts, band_w = nlp_mod.structured_band(nlp)
-    try:
-        plan = bb.make_plan(starts, band_w, nlp.block[0], nlp.block[1])
-    except ValueError as e:
-        raise NotImplementedError(
-            "the gather-banded QP path (row windows that are not "
-            "step-aligned) is not ported") from e
     n = nlp.n
     n_cnt = nlp_mod.num_cnt_groups(nlp)
-    m_blk = plan.m_blk
     cfg = sqp.qp
+    if structured:
+        if not nlp_mod.supports_structured(nlp):
+            missing = [t.name for t in nlp_mod.structured_sets(nlp)
+                       if t.banded_jac is None]
+            raise ValueError(f"structured=True requires banded_jac on all "
+                             f"constraint/penalty sets; missing on "
+                             f"{missing}")
+        if nlp.block is None:
+            raise NotImplementedError("the gather-banded QP path (no (T, D) "
+                                      "block layout) is not ported")
+        starts, band_w = nlp_mod.structured_band(nlp)
+        try:
+            plan = bb.make_plan(starts, band_w, nlp.block[0], nlp.block[1])
+        except ValueError as e:
+            raise NotImplementedError(
+                "the gather-banded QP path (row windows that are not "
+                "step-aligned) is not ported") from e
+        m_blk = plan.m_blk
+        m_qp = m_blk + n
+    else:
+        m_qp = num_qp_rows(nlp)
+    ns_refresh = structured and cfg.ns_refresh
 
     def merit(cost_vals, cnt_viols, merit_coeffs):
         return cost_vals.sum(-1) + (merit_coeffs * cnt_viols).sum(-1)
@@ -206,19 +260,33 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
         # Trust box = variable bounds clamped around the current iterate.
         lb_box = torch.maximum(lb, x_state - ts.box_size[:, None])
         ub_box = torch.minimum(ub, x_state + ts.box_size[:, None])
-        res = solve_qp_block_prepared(
-            prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_blk],
-            zb0=ts.z[:, m_blk:], yc0=ts.y[:, :m_blk], yb0=ts.y[:, m_blk:],
-            cfg=cfg)
+        with record_function("sqp.qp"):
+            if structured:
+                res = solve_qp_block_prepared(
+                    prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_blk],
+                    zb0=ts.z[:, m_blk:], yc0=ts.y[:, :m_blk],
+                    yb0=ts.y[:, m_blk:], cfg=cfg)
+            else:
+                res = solve_qp(build_qp(nlp, model, merit_coeffs, lb_box,
+                                        ub_box), ts.x, z0=ts.z, y0=ts.y,
+                               cfg=cfg)
         new_x = res.x
         qp_bad = ~torch.isfinite(new_x).all(-1)
 
-        model_cost = nlp_mod.structured_model_cost_total(nlp, model, new_x)
-        model_viols = nlp_mod.structured_model_cnt_viols(nlp, model, new_x)
-        model_merit = model_cost + (merit_coeffs * model_viols).sum(-1)
-        new_cost_vals = nlp_mod.eval_exact_costs(nlp, new_x, params)
-        new_cnt_viols = nlp_mod.eval_exact_cnt_viols(nlp, new_x, params)
-        new_merit = merit(new_cost_vals, new_cnt_viols, merit_coeffs)
+        with record_function("sqp.evaluate"):
+            if structured:
+                model_cost = nlp_mod.structured_model_cost_total(nlp, model,
+                                                                 new_x)
+                model_viols = nlp_mod.structured_model_cnt_viols(nlp, model,
+                                                                 new_x)
+            else:
+                model_cost = nlp_mod.model_cost_total(nlp, model, new_x)
+                model_viols = nlp_mod.eval_model_cnt_viols(nlp, model,
+                                                           new_x)
+            model_merit = model_cost + (merit_coeffs * model_viols).sum(-1)
+            new_cost_vals = nlp_mod.eval_exact_costs(nlp, new_x, params)
+            new_cnt_viols = nlp_mod.eval_exact_cnt_viols(nlp, new_x, params)
+            new_merit = merit(new_cost_vals, new_cnt_viols, merit_coeffs)
 
         approx_improve = old_merit - model_merit
         exact_improve = old_merit - new_merit
@@ -291,10 +359,20 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             ts = _put(ts, idx, trust_body(_take(ts, idx), _take(ctx, idx)))
 
     def sqp_step(state: _State, params, lb, ub, jac_cache) -> _State:
-        model = nlp_mod.convexify_structured(nlp, state.x, params, jac_cache)
-        prep = block_prepare(model, state.merit_coeffs, state.x,
-                             minv0=state.minv if cfg.ns_refresh else None)
-        new_minv = prep.Minv if cfg.ns_refresh else state.minv
+        with record_function("sqp.convexify"):
+            if structured:
+                model = nlp_mod.convexify_structured(nlp, state.x, params,
+                                                     jac_cache)
+            else:
+                model = nlp_mod.convexify(nlp, state.x, params, jac_cache)
+        prep, new_minv = None, state.minv
+        if structured:
+            with record_function("qp.prepare"):
+                prep = block_prepare(model, state.merit_coeffs, state.x,
+                                     minv0=state.minv if ns_refresh
+                                     else None)
+            if ns_refresh:
+                new_minv = prep.Minv
         ts = trust_loop(state, model, prep, params, lb, ub)
         dtype = state.x.dtype
 
@@ -385,7 +463,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
         x0 = torch.minimum(torch.maximum(x0, lb), ub)
         jac_cache = nlp_mod.linear_jacobians(nlp, x0, params)
         coeffs0 = x0.new_full((B, n_cnt), sqp.initial_merit_error_coeff)
-        if cfg.ns_refresh:
+        if ns_refresh:
             # Seed the carried KKT inverse with one Cholesky at the initial
             # convexification; later steps refresh it by Newton-Schulz.
             model0 = nlp_mod.convexify_structured(nlp, x0, params, jac_cache)
@@ -406,7 +484,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             restarts_used=ints(0), total_iter=ints(0),
             status=ints(SQPStatus.RUNNING), n_qp_solves=ints(0),
             n_func_evals=ints(1),
-            z=x0.new_zeros(B, m_blk + n), y=x0.new_zeros(B, m_blk + n),
+            z=x0.new_zeros(B, m_qp), y=x0.new_zeros(B, m_qp),
             minv=minv)
         lane = (params, lb, ub, jac_cache)
         while True:
