@@ -10,7 +10,9 @@ Phases, each of which must pass:
    flagship QP shapes (T 30, D 8, K 2, R 40, B 256, 150 iterations), on
    seeded data with hard, penalty and inert padded rows and one lane with
    a planted NaN, and on the flagship's first QP; time both versions on
-   the latter and compute the bound;
+   the latter and compute the bound and the cluster design's floor; print
+   the cluster size, the shared memory per block and how many clusters
+   the card holds at once;
 4. hold the dense kernel against its plain version at the arm7 shapes
    (n 210, m 449, B 128, 20 iterations), on seeded data with hard,
    equality, penalty and box rows, a planted NaN lane and an ``active``
@@ -25,12 +27,12 @@ Phases, each of which must pass:
    through ``pr2ish_table_problem`` / ``TrajOptProblem.make_solve(...,
    structured=True)``, then the independent swept check of every lane;
    the block kernel's launch count over that solve; a profiled repeat for
-   the device's idle share;
+   the device's idle share and the chunk kernel's in-path time;
 7. the arm7 discrete workload (30 steps, B = 128 lanes) through
    ``arm_table_problem`` / ``make_solve(discrete_params())`` on the dense
    QP path, the same checks with the dense kernel's launch count; then
-   the same workload on the block path (``structured=True``), counts and
-   rate only.
+   the same workload on the block path (``structured=True``, its cluster
+   size printed), counts and rate only.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -76,6 +78,13 @@ from trajopt_tpu_torch.sqp.solver import block_qp, build_qp, make_solver
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# Shared memory per SM and clock: 32 banks of 4 bytes, each serving one
+# access a clock (CUDA C++ Programming Guide, "Compute Capabilities",
+# shared memory of compute capability 5.x and later: "each bank has a
+# bandwidth of 32 bits per clock cycle"); times the SM count and the
+# maximum SM clock read from the card.  Used only for the printed design
+# floor of phase 3.
+SMEM_BYTES_PER_CLK = 32 * 4
 
 T, D, K, R, B, N_ITERS = 30, 8, 2, 40, 256, 150
 # Kernel vs plain version, both float32 on the same inputs: they sum in
@@ -130,11 +139,15 @@ def discrete_params() -> SQPParams:
                       ns_tol=1e-4, ns_power_iters=4))
 
 
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -334,12 +347,30 @@ def phase_kernel_check(dev) -> dict:
     n_out = sum(a.numel() for a in args[15:]) + 5 * B
     nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * n_out
     bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
-    minv_stream = kw["n_iters"] * args[0].numel() * 4 / PEAK_HBM_BYTES * 1e3
+    cs, smem = fb.cluster_plan(T, D, K, R)
+    clusters = fb.max_active_clusters(T, D, K, R)
+    # The cluster design's floor: Minv read from shared memory once per
+    # iteration on every SM at its peak rate, plus one load of Minv and
+    # the weights from device memory.
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    minv = args[0].numel() * 4
+    floor_smem = kw["n_iters"] * minv / (n_sm * SMEM_BYTES_PER_CLK * clk)
+    floor_load = (minv + args[1].numel() * 4) / PEAK_HBM_BYTES
+    floor_ms = (floor_smem + floor_load) * 1e3
+    print(f"block kernel: clusters of {cs} blocks, {smem} B of shared "
+          f"memory per block, at most {clusters} clusters resident "
+          f"(cudaOccupancyMaxActiveClusters) -> {B / clusters:.2f} waves "
+          f"of {B} problems")
     print(f"chunk on the main path's first QP, B={B}, {kw['n_iters']} "
-          f"iterations: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+          f"iterations: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP -> "
-          f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); Minv "
-          f"streamed every iteration -> {minv_stream:.3f} ms")
+          f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); "
+          f"design floor {floor_ms:.4f} ms (Minv from shared memory "
+          f"{kw['n_iters'] * minv / 1e9:.2f} GB on {n_sm} SMs x "
+          f"{SMEM_BYTES_PER_CLK} B/clk at {clk / 1e6:.0f} MHz -> "
+          f"{floor_smem * 1e3:.4f} ms, plus one load of Minv and Wb "
+          f"{floor_load * 1e3:.4f} ms)")
     return {"name": "admm_block_chunk", "route": "cuda",
             "source": "trajopt_tpu_torch/csrc/admm_block_chunk.cu",
             "replaces": "trajopt_tpu/qp/pallas_block.py:182",
@@ -610,13 +641,23 @@ def device_busy_share(prof, wall_us: float) -> float | None:
     return busy / wall_us
 
 
+def kernel_time(prof, kernel: str) -> tuple[int, float]:
+    """(launches, device ms) of the traced kernels whose name holds
+    ``kernel``."""
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return len(spans), sum(spans) / 1e3
+
+
 def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
-               n_dof: int, counter, smi: str, min_verified: int | None,
-               profile: bool = True) -> int:
+               n_dof: int, counter, kernel: str, smi: str,
+               min_verified: int | None, profile: bool = True) -> int:
     """A warm-up solve, then the measured solve of ``B`` seeded lanes with
     the kernel's launch count set to 0 just before and read just after;
     the independent swept check of every lane; with ``profile`` a
-    profiled repeat for the device's idle share and its top kernels.
+    profiled repeat for the device's idle share, its top kernels and the
+    in-path time of the chunk kernel ``kernel``.
     Fails below ``min_verified`` converged and swept-verified lanes or
     when the kernel never launched.  Returns the launch count."""
     inits, goals = batch(0, B, n_steps)
@@ -680,6 +721,10 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
               f"{share:.4f}, idle share {1 - share:.4f} (under the "
               f"profiler)")
         print(f"{label}: by layer: {layer_split(prof)}")
+        n_k, ms_k = kernel_time(prof, kernel)
+        print(f"{label}: {kernel} in the path: {launches} launches "
+              f"counted, {n_k} traced, {ms_k:.3f} ms device time "
+              f"({ms_k / max(n_k, 1):.4f} ms each)")
         print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                         row_limit=12, max_name_column_width=60))
     return launches
@@ -689,8 +734,8 @@ def phase_flagship(smi: str) -> int:
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
     return drive_path("flagship", prob.make_solve(flagship_params(),
                                                   structured=True),
-                      scene, pr2ish_table_batch, B, 30, 8, fb.COUNTER, smi,
-                      MIN_VERIFIED)
+                      scene, pr2ish_table_batch, B, 30, 8, fb.COUNTER,
+                      "admm_block_chunk_kernel", smi, MIN_VERIFIED)
 
 
 def phase_arm7(smi: str) -> int:
@@ -700,11 +745,18 @@ def phase_arm7(smi: str) -> int:
     prob, scene = arm_table_problem(n_steps=ARM_STEPS)
     launches = drive_path("arm7 dense", prob.make_solve(discrete_params()),
                           scene, arm_table_batch, ARM_B, ARM_STEPS, 7,
-                          fd.COUNTER, smi, ARM_MIN_VERIFIED)
+                          fd.COUNTER, "admm_dense_chunk_kernel", smi,
+                          ARM_MIN_VERIFIED)
+    nlp = prob.build()
+    plan = bb.make_plan(*nlp_mod.structured_band(nlp), *nlp.block)
+    shape = (plan.T, plan.D, plan.K, plan.R)
+    cs, smem = fb.cluster_plan(*shape)
+    print(f"arm7 block: QP shape (T, D, K, R) {shape}, block kernel in "
+          f"clusters of {cs} ({smem} B of shared memory per block)")
     drive_path("arm7 block", prob.make_solve(discrete_params(),
                                              structured=True),
-               scene, arm_table_batch, ARM_B, ARM_STEPS, 7, fb.COUNTER, smi,
-               None, profile=False)
+               scene, arm_table_batch, ARM_B, ARM_STEPS, 7, fb.COUNTER,
+               "admm_block_chunk_kernel", smi, None, profile=False)
     return launches
 
 

@@ -26,8 +26,19 @@ from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
 
 pytestmark = pytest.mark.cuda
 
-T, D, K, R, B = 6, 3, 2, 5, 9
-KW = dict(D=D, sigma=1e-6, alpha=1.6, rho_b=0.1, n_iters=60)
+# (T, D, K, R, B) by the cluster size fused_block.cluster_plan gives: a
+# small shape that takes one block per problem; the flagship's QP shape at
+# a small batch (two); shapes whose n > 256 takes one thread a column in
+# the rhs (four and eight); and the arm7 block path's QP shape (one), with
+# D and R that are not multiples of 4.
+SHAPES = {"cs1": (6, 3, 2, 5, 9), "cs2": (30, 8, 2, 40, 5),
+          "cs4": (24, 16, 1, 10, 5), "cs8": (30, 16, 1, 10, 5),
+          "arm7": (30, 7, 1, 15, 5)}
+CLUSTER = {"cs1": 1, "cs2": 2, "cs4": 4, "cs8": 8, "arm7": 1}
+
+
+def _kw(D):
+    return dict(D=D, sigma=1e-6, alpha=1.6, rho_b=0.1, n_iters=60)
 
 
 @pytest.fixture
@@ -37,8 +48,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, seed=0):
-    """Seeded float32 chunk operands with hard, penalty and inert rows."""
+def _inputs(dev, seed=0, shape="cs1"):
+    """Seeded float32 chunk operands with hard, penalty and inert rows (4
+    live rows a step, the rest inert padding) and the live-row mask."""
+    T, D, K, R, B = SHAPES[shape]
     rng = np.random.default_rng(seed)
     n, m, KD = T * D, T * R, K * D
     live = np.zeros((T, R), bool)
@@ -72,11 +85,14 @@ def _inputs(dev, seed=0):
            x, bb.matvec_wb(Wt, x, D), torch.as_tensor(bd, **f64) * x,
            rng.standard_normal((B, m)) * 0.01 * live, np.zeros((B, n))]
     return [torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
-            for v in ops]
+            for v in ops], torch.as_tensor(live, device=dev)
 
 
-def test_kernel_matches_plain_version(cuda):
-    args = _inputs(cuda)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_kernel_matches_plain_version(cuda, shape):
+    args, live = _inputs(cuda, shape=shape)
+    assert fb.cluster_plan(*SHAPES[shape][:4])[0] == CLUSTER[shape]
+    KW = _kw(SHAPES[shape][1])
     args[3][4, 2] = float("nan")                 # a blown-up lane
     before = fb.COUNTER.launches
     got = fb.chunk_cuda(*args, **KW)
@@ -93,11 +109,17 @@ def test_kernel_matches_plain_version(cuda):
         # version's own distance to float64, plus 1e-6 of the magnitude
         assert err_k <= 4 * err_p + 1e-6 * r[ok].abs().max()
     assert torch.isnan(got[1].pri[4]) and torch.isnan(got[1].dua[4])
+    others = torch.arange(len(args[0]), device=cuda) != 4
+    assert not torch.isnan(torch.stack(got[1])[:, others]).any()
+    for rows in (got[0][1], got[0][3]):          # zc, yc: inert rows stay 0
+        assert (rows[others][:, ~live] == 0).all()
 
 
-def test_kernel_skips_inactive_lanes(cuda):
-    args = _inputs(cuda, seed=1)
-    active = torch.arange(B, device=cuda) % 3 != 0
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_kernel_skips_inactive_lanes(cuda, shape):
+    args, _ = _inputs(cuda, seed=1, shape=shape)
+    KW = _kw(SHAPES[shape][1])
+    active = torch.arange(len(args[0]), device=cuda) % 3 != 0
     state, stats = fb.chunk(*args, **KW, active=active)
     for new, old in zip(state, args[15:]):
         assert torch.equal(new[~active], old[~active])
@@ -106,7 +128,8 @@ def test_kernel_skips_inactive_lanes(cuda):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    args = _inputs(cuda)
+    args, _ = _inputs(cuda)
+    KW = _kw(SHAPES["cs1"][1])
     with pytest.raises(TypeError):
         fb.chunk_cuda(*[a.double() for a in args], **KW)
     bad = list(args)
@@ -116,6 +139,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     bad[0] = args[0][:, :-1]
     with pytest.raises(ValueError, match="shape"):
         fb.chunk_cuda(*bad, **KW)
+
+
+def test_shape_no_cluster_takes_raises_before_launch(cuda):
+    """T 30, D 17, K 2, R 68: n = 510 and m = 2040 are within the threads'
+    reach, but the weights alone take 285,600 B, more than any block of
+    any cluster size can hold."""
+    T, D, K, R = 30, 17, 2, 68
+    n, m = T * D, T * R
+    sizes = [(1, n, n), (1, T, R, K * D), (1, n, n)] + [(1, n)] \
+        + [(1, m)] * 4 + [(1, n)] * 3 + [(1, m)] + [(1, n)] * 2 + [(1,)] \
+        + [(1, n), (1, m), (1, n), (1, m), (1, n)]
+    args = [torch.ones(s, device=cuda) for s in sizes]
+    before = fb.COUNTER.launches
+    with pytest.raises(ValueError, match="no cluster"):
+        fb.chunk_cuda(*args, **_kw(D))
+    assert fb.COUNTER.launches == before
 
 
 def test_small_solve_on_the_card(cuda):

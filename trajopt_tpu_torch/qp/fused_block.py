@@ -11,13 +11,16 @@ the TPU kernel existed only for Mosaic).
 
 Dispatch: on CPU tensors :func:`chunk` runs :func:`chunk_plain`; on CUDA
 tensors it launches the kernel or raises — there is no fallback.  The
-kernel is built with ``nvcc`` for ``sm_90a`` at first use into
+kernel runs one thread-block cluster per problem, of the size
+:func:`cluster_plan` picks, with ``Minv`` split across the cluster's shared
+memory.  It is built with ``nvcc`` for ``sm_90a`` at first use into
 ``trajopt_tpu_torch/_build/`` and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -49,15 +52,80 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.admm_block_chunk.argtypes = [vp] * 27 + [ci] * 5 + [cf] * 3 \
+        lib.admm_block_chunk.argtypes = [vp] * 27 + [ci] * 6 + [cf] * 3 \
             + [ci, vp]
         lib.admm_block_chunk.restype = ci
-        lib.admm_block_chunk_smem.argtypes = [ci] * 4
-        lib.admm_block_chunk_smem.restype = ctypes.c_size_t
-        lib.admm_block_chunk_limits.argtypes = [ctypes.POINTER(ci)] * 3
-        lib.admm_block_chunk_limits.restype = ci
+        lib.admm_block_chunk_prepare.argtypes = [ci] * 5 \
+            + [ctypes.c_size_t, ctypes.POINTER(ci)]
+        lib.admm_block_chunk_prepare.restype = ci
         _LIB = lib
     return _LIB
+
+
+# The kernel's limits (csrc/admm_block_chunk.cu: NT, MAX_ROWS, MAX_CS): 512
+# threads a block, one column and up to four rows of C a thread, clusters
+# of up to 8 blocks.  cluster_plan repeats the kernel's shared-memory
+# layout (smem_floats there); _prepare checks the two agree, once a shape.
+THREADS = 512
+MAX_N, MAX_M = THREADS, 4 * THREADS
+CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(T: int, D: int, K: int, R: int) -> tuple[int, int]:
+    """(cs, bytes of shared memory per block): the least cluster size whose
+    blocks fit in ``kernels.SMEM_LIMIT`` when each of the cs blocks holds
+    two transaction barriers, ceil(n / cs) rows of Minv, a full copy of the
+    banded weights ([T*R, K*D | 1] floats), w [T*R], the two rhs halves
+    and the two xt buffers ([2, n] each) and the reduction scratch, each
+    region starting on a 16-byte boundary.  Raises ``ValueError`` when
+    n = T*D or m = T*R exceed what the kernel's threads own, or when no
+    size fits."""
+    n, m, kdp = T * D, T * R, (K * D) | 1
+    if n > MAX_N or m > MAX_M:
+        raise ValueError(f"n={n}, m={m} exceed the kernel's per-thread "
+                         f"ownership (n <= {MAX_N}, m <= {MAX_M})")
+
+    def r4(k):
+        return -(-k // 4) * 4
+
+    for cs in CLUSTER_SIZES:
+        floats = (4 + r4(-(-n // cs) * n) + r4(m * kdp) + r4(m)
+                  + 2 * r4(2 * n) + (THREADS // 32) * 5
+                  + CLUSTER_SIZES[-1] * 5)
+        if 4 * floats <= kernels.SMEM_LIMIT:
+            return cs, 4 * floats
+    raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} blocks holds "
+                     f"T={T}, D={D}, K={K}, R={R}: a block would need "
+                     f"{4 * floats} B of shared memory (> "
+                     f"{kernels.SMEM_LIMIT})")
+
+
+@functools.lru_cache(maxsize=None)
+def _prepare(device: int, T: int, D: int, K: int, R: int) -> tuple[int, int]:
+    """(cs, resident clusters) for a shape on CUDA device ``device``, once:
+    the C side checks :func:`cluster_plan`'s bytes against its own layout,
+    sets the kernel's shared-memory limit and queries
+    ``cudaOccupancyMaxActiveClusters``.  Raises when any of that fails or
+    no cluster can be resident."""
+    cs, smem = cluster_plan(T, D, K, R)
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _lib().admm_block_chunk_prepare(T, D, K, R, cs, smem, out)
+    if err != 0:
+        raise RuntimeError(f"admm_block_chunk_prepare failed for T={T}, "
+                           f"D={D}, K={K}, R={R}, cs={cs}: CUDA error {err}")
+    if out.value == 0:
+        raise RuntimeError(f"no cluster of {cs} blocks with {smem} B of "
+                           f"shared memory each can be resident")
+    return cs, out.value
+
+
+def max_active_clusters(T: int, D: int, K: int, R: int) -> int:
+    """How many clusters of :func:`cluster_plan`'s size the current card can
+    hold at once for this shape (``cudaOccupancyMaxActiveClusters``); the
+    launch raises when it is 0."""
+    return _prepare(torch.cuda.current_device(), T, D, K, R)[1]
 
 
 _ARG_NAMES = ("Minv", "Wb", "P", "q", "lc", "uc", "cr", "rho_c", "lb", "ub",
@@ -124,7 +192,8 @@ def chunk_flops(Wb: torch.Tensor, D: int, n_iters: int) -> int:
 def chunk_cuda(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
                cobj, x, zc, zb, yc, yb, *, D, sigma, alpha, rho_b, n_iters,
                active=None):
-    """Launch the kernel on the current stream.  ``active`` [B] bool skips
+    """Launch the kernel on the current stream, one cluster of
+    :func:`cluster_plan`'s size per problem.  ``active`` [B] bool skips
     lanes (their outputs are left unwritten; :func:`chunk` masks them)."""
     args = (Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd, cobj,
             x, zc, zb, yc, yb)
@@ -149,17 +218,7 @@ def chunk_cuda(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    lib = _lib()
-    threads, mc, mr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.admm_block_chunk_limits(threads, mc, mr)
-    if n > mc.value * threads.value or m > mr.value * threads.value:
-        raise ValueError(f"n={n}, m={m} exceed the kernel's per-thread "
-                         f"ownership ({mc.value}, {mr.value} x "
-                         f"{threads.value})")
-    smem = lib.admm_block_chunk_smem(T, D, K, R)
-    if smem > kernels.SMEM_LIMIT:
-        raise ValueError(f"shape needs {smem} B of shared memory "
-                         f"(> {kernels.SMEM_LIMIT})")
+    cs, _ = _prepare(dev.index, T, D, K, R)
     outs = [torch.empty_like(t) for t in (x, zc, zb, yc, yb)]
     stats = torch.empty(B, 5, dtype=torch.float32, device=dev)
     act = None
@@ -167,10 +226,10 @@ def chunk_cuda(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
         act = active.to(device=dev, dtype=torch.int32).contiguous()
     if B:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admm_block_chunk(
+        err = _lib().admm_block_chunk(
             *[t.data_ptr() for t in args], *[o.data_ptr() for o in outs],
             stats.data_ptr(), None if act is None else act.data_ptr(),
-            B, T, D, K, R, float(sigma), float(alpha), float(rho_b),
+            B, T, D, K, R, cs, float(sigma), float(alpha), float(rho_b),
             int(n_iters), stream)
         if err != 0:
             raise RuntimeError(f"admm_block_chunk launch failed: CUDA error "
