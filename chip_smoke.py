@@ -17,8 +17,10 @@ Phases, each of which must pass:
    (n 210, m 449, B 128, 20 iterations), on seeded data with hard,
    equality, penalty and box rows, a planted NaN lane and an ``active``
    mask, and on the arm7 path's first QP; time both versions on the
-   latter and compute the bound; one adaptive-rho ``solve_qp`` of that QP
-   on the card against float64;
+   latter and compute the bound and the cluster design's floor; print the
+   cluster size, the shared memory per block and how many clusters the
+   card holds at once; one adaptive-rho ``solve_qp`` of that QP on the
+   card against float64;
 5. small problems (10 steps, 3 lanes) on the card (float32, kernels)
    against the CPU (plain versions): for pr2ish one QP step (convexify,
    prepare, 450 ADMM iterations) against float64, and a whole solve of
@@ -83,7 +85,7 @@ PEAK_HBM_BYTES = 3.35e12
 # shared memory of compute capability 5.x and later: "each bank has a
 # bandwidth of 32 bits per clock cycle"); times the SM count and the
 # maximum SM clock read from the card.  Used only for the printed design
-# floor of phase 3.
+# floors of phases 3 and 4.
 SMEM_BYTES_PER_CLK = 32 * 4
 
 T, D, K, R, B, N_ITERS = 30, 8, 2, 40, 256, 150
@@ -307,6 +309,14 @@ def hold_chunk(label: str, args, kw):
     return (st_k, stats_k), max_abs
 
 
+def smem_ms(nbytes: int) -> tuple[float, int, float]:
+    """(ms to read ``nbytes`` from shared memory on every SM at its peak
+    rate, the SM count, the maximum SM clock in Hz)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return nbytes / (n_sm * SMEM_BYTES_PER_CLK * clk) * 1e3, n_sm, clk
+
+
 def bound(flops: int, nbytes: int) -> tuple[float, str, float, float]:
     """(bound ms, what bounds it, ms of the operations at the fp32 peak, ms
     of the bytes at the HBM rate)."""
@@ -350,14 +360,11 @@ def phase_kernel_check(dev) -> dict:
     cs, smem = fb.cluster_plan(T, D, K, R)
     clusters = fb.max_active_clusters(T, D, K, R)
     # The cluster design's floor: Minv read from shared memory once per
-    # iteration on every SM at its peak rate, plus one load of Minv and
-    # the weights from device memory.
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    clk = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    # iteration, plus one load of Minv and the weights from device memory.
     minv = args[0].numel() * 4
-    floor_smem = kw["n_iters"] * minv / (n_sm * SMEM_BYTES_PER_CLK * clk)
-    floor_load = (minv + args[1].numel() * 4) / PEAK_HBM_BYTES
-    floor_ms = (floor_smem + floor_load) * 1e3
+    floor_smem, n_sm, clk = smem_ms(kw["n_iters"] * minv)
+    floor_load = (minv + args[1].numel() * 4) / PEAK_HBM_BYTES * 1e3
+    floor_ms = floor_smem + floor_load
     print(f"block kernel: clusters of {cs} blocks, {smem} B of shared "
           f"memory per block, at most {clusters} clusters resident "
           f"(cudaOccupancyMaxActiveClusters) -> {B / clusters:.2f} waves "
@@ -369,8 +376,8 @@ def phase_kernel_check(dev) -> dict:
           f"design floor {floor_ms:.4f} ms (Minv from shared memory "
           f"{kw['n_iters'] * minv / 1e9:.2f} GB on {n_sm} SMs x "
           f"{SMEM_BYTES_PER_CLK} B/clk at {clk / 1e6:.0f} MHz -> "
-          f"{floor_smem * 1e3:.4f} ms, plus one load of Minv and Wb "
-          f"{floor_load * 1e3:.4f} ms)")
+          f"{floor_smem:.4f} ms, plus one load of Minv and Wb "
+          f"{floor_load:.4f} ms)")
     return {"name": "admm_block_chunk", "route": "cuda",
             "source": "trajopt_tpu_torch/csrc/admm_block_chunk.cu",
             "replaces": "trajopt_tpu/qp/pallas_block.py:182",
@@ -481,15 +488,31 @@ def phase_dense_kernel_check(dev) -> dict:
     n_iters = kw["n_iters"]
     bound_ms, bound_by, t_ops, t_bytes = bound(
         fd.chunk_flops(args[1], n_iters), fd.chunk_bytes(args[1]))
-    stream = fd.chunk_stream_bytes(args[1], n_iters)
     B, m, n = args[1].shape
+    cs, smem = fd.cluster_plan(n, m)
+    clusters = fd.max_active_clusters(n, m)
+    # The cluster design's floor: A and Minv read from shared memory once
+    # per iteration (A once more before the first), plus one load of both
+    # from device memory.
+    mats = fd.chunk_stream_bytes(args[1], n_iters)
+    floor_smem, n_sm, clk = smem_ms(mats)
+    floor_load = 4 * (args[0].numel() + args[1].numel()) / PEAK_HBM_BYTES \
+        * 1e3
+    floor_ms = floor_smem + floor_load
+    print(f"dense kernel: clusters of {cs} blocks (0: the streaming kernel), "
+          f"{smem} B of shared memory per block, at most {clusters} "
+          f"clusters resident (cudaOccupancyMaxActiveClusters) -> "
+          f"{B / clusters:.2f} waves of {B} problems")
     print(f"dense chunk on the arm7 path's first QP, B={B}, n={n}, m={m}, "
           f"{n_iters} iterations: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
           f"ms; bound {bound_ms:.4f} ms by {bound_by} "
           f"({fd.chunk_flops(args[1], n_iters) / 1e9:.3f} GFLOP -> "
           f"{t_ops:.4f} ms, {fd.chunk_bytes(args[1]) / 1e6:.1f} MB -> "
-          f"{t_bytes:.4f} ms); this design streams {stream / 1e6:.0f} MB "
-          f"-> {stream / PEAK_HBM_BYTES * 1e3:.3f} ms")
+          f"{t_bytes:.4f} ms); design floor {floor_ms:.4f} ms (A and Minv "
+          f"from shared memory {mats / 1e9:.3f} GB on {n_sm} SMs x "
+          f"{SMEM_BYTES_PER_CLK} B/clk at {clk / 1e6:.0f} MHz -> "
+          f"{floor_smem:.4f} ms, plus one load of A and Minv "
+          f"{floor_load:.4f} ms)")
 
     # The adaptive-rho path (a refactorization per chunk) launches the
     # kernel too: the path's 60 iterations (3 chunks, eps 0 so that all
@@ -745,7 +768,7 @@ def phase_arm7(smi: str) -> int:
     prob, scene = arm_table_problem(n_steps=ARM_STEPS)
     launches = drive_path("arm7 dense", prob.make_solve(discrete_params()),
                           scene, arm_table_batch, ARM_B, ARM_STEPS, 7,
-                          fd.COUNTER, "admm_dense_chunk_kernel", smi,
+                          fd.COUNTER, "admm_dense_", smi,
                           ARM_MIN_VERIFIED)
     nlp = prob.build()
     plan = bb.make_plan(*nlp_mod.structured_band(nlp), *nlp.block)

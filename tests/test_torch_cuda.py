@@ -174,41 +174,50 @@ def test_small_solve_on_the_card(cuda):
     assert torch.isfinite(res.x).all()
 
 
-DB, DN, DM = 5, 37, 61          # ragged: n and m not multiples of 32
+# (B, n, m) by the kernel fused_dense.cluster_plan picks: ragged (n and m
+# not multiples of 32) in one block; arm7's dense QP shape in a cluster of
+# three; a cluster of seven; and a shape no cluster of eight holds, which
+# takes the streaming kernel (cs = 0).
+DENSE = {"ragged": (5, 37, 61), "arm7": (4, 210, 449), "cs7": (4, 300, 700),
+         "stream": (4, 400, 1200)}
+DENSE_CLUSTER = {"ragged": 1, "arm7": 3, "cs7": 7, "stream": 0}
 DKW = dict(sigma=1e-6, alpha=1.6, n_iters=40)
 
 
-def _dense_inputs(dev, seed=0):
+def _dense_inputs(dev, seed=0, shape="ragged"):
     """Seeded float32 dense-chunk operands: hard (inequality, equality with
     rho 100, box) and penalty rows."""
+    B, n, m = DENSE[shape]
     rng = np.random.default_rng(seed)
     f64 = dict(dtype=torch.float64, device=dev)
-    m_c = DM - DN
-    A = np.concatenate([rng.standard_normal((DB, m_c, DN)),
-                        np.broadcast_to(np.eye(DN), (DB, DN, DN))], 1)
-    kind = rng.integers(0, 4, (DB, m_c))
-    bnd = rng.standard_normal((DB, m_c))
+    m_c = m - n
+    A = np.concatenate([rng.standard_normal((B, m_c, n)),
+                        np.broadcast_to(np.eye(n), (B, n, n))], 1)
+    kind = rng.integers(0, 4, (B, m_c))
+    bnd = rng.standard_normal((B, m_c))
     l = np.concatenate([np.where(kind >= 2, bnd, -np.inf),
-                        -np.ones((DB, DN))], 1)
-    u = np.concatenate([bnd, np.ones((DB, DN))], 1)
+                        -np.ones((B, n))], 1)
+    u = np.concatenate([bnd, np.ones((B, n))], 1)
     c = np.concatenate([np.where(kind % 2 == 0, np.inf,
-                                 rng.uniform(1, 50, (DB, m_c))),
-                        np.full((DB, DN), np.inf)], 1)
+                                 rng.uniform(1, 50, (B, m_c))),
+                        np.full((B, n), np.inf)], 1)
     rho = np.where(np.isinf(c) & (u - l < 1e-10), 100.0, 0.1)
-    G = rng.standard_normal((DB, DN, DN)) / np.sqrt(DN)
+    G = rng.standard_normal((B, n, n)) / np.sqrt(n)
     At = torch.as_tensor(A, **f64)
-    M = (torch.as_tensor(G @ G.transpose(0, 2, 1) + np.eye(DN), **f64)
+    M = (torch.as_tensor(G @ G.transpose(0, 2, 1) + np.eye(n), **f64)
          + At.transpose(1, 2) @ (torch.as_tensor(rho, **f64)[..., None] * At))
-    x = rng.standard_normal((DB, DN)) * 0.1
-    ops = [cholesky_inverse(M), At, rng.standard_normal((DB, DN)), l, u,
+    x = rng.standard_normal((B, n)) * 0.1
+    ops = [cholesky_inverse(M), At, rng.standard_normal((B, n)), l, u,
            c / rho, rho, x, np.einsum("bmn,bn->bm", A, x),
-           rng.standard_normal((DB, DM)) * 0.01]
+           rng.standard_normal((B, m)) * 0.01]
     return [torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
             for v in ops]
 
 
-def test_dense_kernel_matches_plain_version(cuda):
-    args = _dense_inputs(cuda)
+@pytest.mark.parametrize("shape", sorted(DENSE))
+def test_dense_kernel_matches_plain_version(cuda, shape):
+    assert fd.cluster_plan(*DENSE[shape][1:])[0] == DENSE_CLUSTER[shape]
+    args = _dense_inputs(cuda, shape=shape)
     args[2][3, 4] = float("nan")                 # a blown-up lane
     before = fd.COUNTER.launches
     got = fd.chunk_cuda(*args, **DKW)
@@ -224,11 +233,15 @@ def test_dense_kernel_matches_plain_version(cuda):
         # version's own distance to float64, plus 1e-6 of the magnitude
         assert err_k <= 4 * err_p + 1e-6 * r[ok].abs().max()
     assert all(torch.isnan(t[3]).all() for t in got)
+    others = torch.arange(len(args[0]), device=cuda) != 3
+    assert not any(torch.isnan(t[others]).any() for t in got)
 
 
-def test_dense_kernel_skips_inactive_lanes(cuda):
-    args = _dense_inputs(cuda, seed=1)
-    active = torch.arange(DB, device=cuda) % 2 == 0
+@pytest.mark.parametrize("shape", sorted(DENSE))
+def test_dense_kernel_skips_inactive_lanes(cuda, shape):
+    assert fd.cluster_plan(*DENSE[shape][1:])[0] == DENSE_CLUSTER[shape]
+    args = _dense_inputs(cuda, seed=1, shape=shape)
+    active = torch.arange(len(args[0]), device=cuda) % 2 == 0
     full = fd.chunk_cuda(*args, **DKW)
     out = fd.chunk(*args, **DKW, active=active)
     for new, old, ref in zip(out[:3], args[7:], full[:3]):

@@ -15,13 +15,18 @@ rounding).
 
 Dispatch: on CPU tensors :func:`chunk` runs :func:`chunk_plain`; on CUDA
 tensors it launches the kernel or raises — there is no fallback.  The
-kernel is built with ``nvcc`` for ``sm_90a`` at first use into
-``trajopt_tpu_torch/_build/`` and bound with ``ctypes``.
+kernel runs one thread-block cluster per problem, of the size
+:func:`cluster_plan` picks from the shape, with ``A`` and ``Minv`` split
+by rows across the cluster's shared memory; shapes that no cluster of 8
+blocks holds take the file's streaming kernel instead, chosen from the
+shape before any launch.  It is built with ``nvcc`` for ``sm_90a`` at
+first use into ``trajopt_tpu_torch/_build/`` and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,15 +48,89 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.admm_dense_chunk.argtypes = [vp] * 15 + [ci] * 3 + [cf] * 2 \
+        lib.admm_dense_chunk.argtypes = [vp] * 15 + [ci] * 4 + [cf] * 2 \
             + [ci, vp]
         lib.admm_dense_chunk.restype = ci
-        lib.admm_dense_chunk_smem.argtypes = [ci] * 2
-        lib.admm_dense_chunk_smem.restype = ctypes.c_size_t
-        lib.admm_dense_chunk_max_n.argtypes = []
-        lib.admm_dense_chunk_max_n.restype = ci
+        lib.admm_dense_chunk_prepare.argtypes = [ci] * 3 \
+            + [ctypes.c_size_t, ctypes.POINTER(ci)]
+        lib.admm_dense_chunk_prepare.restype = ci
         _LIB = lib
     return _LIB
+
+
+# The kernel's limits (csrc/admm_dense_chunk.cu: NT, MAX_CS): 512 threads a
+# block, one column a thread, clusters of up to 8 blocks.  cluster_plan
+# repeats the kernel's shared-memory layouts (cluster_smem_floats and
+# stream_smem_floats there); _prepare checks the two agree, once a shape.
+THREADS = 512
+MAX_N = THREADS
+CLUSTER_SIZES = tuple(range(1, 9))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(n: int, m: int) -> tuple[int, int]:
+    """(cs, bytes of shared memory per block) for the dense chunk kernel.
+    cs is the least cluster size whose blocks fit in
+    ``kernels.SMEM_LIMIT`` when rank r of the cs blocks holds four
+    transaction barriers, rows [r mr, (r+1) mr) of A (mr = ceil(m / cs))
+    and rows [r nr, (r+1) nr) of Minv (nr = ceil(n / cs)) at a row stride
+    of ns = n rounded up to a multiple of 4, the state of its A rows
+    ([8, mr], each row rounded up to a multiple of 4), the warps' column
+    sums ([16, ns]), the double-buffered xt ([2, ns]), rhs ([ns]) and the
+    double-buffered partials ([2, cs, n]).  cs = 0 when no cluster holds the
+    shape: the streaming kernel, whose block holds the row state [7, m],
+    rhs and xt and the column sums.  Raises ``ValueError`` when n is
+    outside the kernel's column range (1..512) or when the streaming
+    block does not fit either."""
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"n={n} outside the kernel's column range "
+                         f"(1..{MAX_N})")
+    nwarp = THREADS // 32
+
+    def r4(k):
+        return -(-k // 4) * 4
+
+    for cs in CLUSTER_SIZES:
+        mr, nr = -(-m // cs), -(-n // cs)
+        floats = (8 + (mr + nr + nwarp + 3) * r4(n) + 8 * r4(mr)
+                  + r4(2 * cs * n))
+        if 4 * floats <= kernels.SMEM_LIMIT:
+            return cs, 4 * floats
+    smem = 4 * (7 * m + 2 * n + nwarp * n)
+    if smem > kernels.SMEM_LIMIT:
+        raise ValueError(f"shape needs {smem} B of shared memory "
+                         f"(> {kernels.SMEM_LIMIT})")
+    return 0, smem
+
+
+@functools.lru_cache(maxsize=None)
+def _prepare(device: int, n: int, m: int) -> tuple[int, int]:
+    """(cs, problems resident at once) for a shape on CUDA device
+    ``device``, once: the C side checks :func:`cluster_plan`'s bytes
+    against its own layout, sets the kernel's shared-memory limit and
+    queries ``cudaOccupancyMaxActiveClusters`` (for cs = 0 the streaming
+    kernel's resident blocks).  Raises when any of that fails or nothing
+    can be resident."""
+    cs, smem = cluster_plan(n, m)
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _lib().admm_dense_chunk_prepare(n, m, cs, smem, out)
+    if err != 0:
+        raise RuntimeError(f"admm_dense_chunk_prepare failed for n={n}, "
+                           f"m={m}, cs={cs}: CUDA error {err}")
+    if out.value == 0:
+        what = f"cluster of {cs} blocks" if cs else "streaming block"
+        raise RuntimeError(f"no {what} with {smem} B of shared memory per "
+                           f"block can be resident")
+    return cs, out.value
+
+
+def max_active_clusters(n: int, m: int) -> int:
+    """How many problems the current card runs at once for this shape:
+    clusters of :func:`cluster_plan`'s size
+    (``cudaOccupancyMaxActiveClusters``), or streaming blocks when the
+    plan's cs is 0."""
+    return _prepare(torch.cuda.current_device(), n, m)[1]
 
 
 _ARG_NAMES = ("Minv", "A", "q", "l", "u", "cr", "rho", "x", "z", "y")
@@ -98,17 +177,21 @@ def chunk_bytes(A: torch.Tensor) -> int:
 
 
 def chunk_stream_bytes(A: torch.Tensor, n_iters: int) -> int:
-    """Bytes this kernel's design streams from device memory: ``A`` once
-    per iteration and once before the first, ``Minv`` once per iteration
-    (neither fits in a block's shared memory at the arm7 shapes)."""
+    """Bytes of ``A`` and ``Minv`` one chunk's iterations read: ``A`` once
+    per iteration and once before the first, ``Minv`` once per iteration.
+    The streaming kernel, which takes the shapes no cluster holds
+    (:func:`cluster_plan` gives cs = 0), reads them from device memory;
+    the cluster kernel reads the same bytes from shared memory."""
     B, m, n = A.shape
     return 4 * B * ((n_iters + 1) * m * n + n_iters * n * n)
 
 
 def chunk_cuda(Minv, A, q, l, u, cr, rho, x, z, y, *, sigma, alpha, n_iters,
                active=None):
-    """Launch the kernel on the current stream.  ``active`` [B] bool skips
-    lanes (their outputs are left unwritten; :func:`chunk` masks them)."""
+    """Launch the kernel on the current stream, one cluster of
+    :func:`cluster_plan`'s size per problem (one streaming block when it
+    is 0).  ``active`` [B] bool skips lanes (their outputs are left
+    unwritten; :func:`chunk` masks them)."""
     args = (Minv, A, q, l, u, cr, rho, x, z, y)
     B, m, n = A.shape
     shapes = {"Minv": (B, n, n), "A": (B, m, n), "q": (B, n), "x": (B, n)}
@@ -125,24 +208,17 @@ def chunk_cuda(Minv, A, q, l, u, cr, rho, x, z, y, *, sigma, alpha, n_iters,
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    lib = _lib()
-    if not 0 < n <= lib.admm_dense_chunk_max_n():
-        raise ValueError(f"n={n} outside the kernel's column range "
-                         f"(1..{lib.admm_dense_chunk_max_n()})")
-    smem = lib.admm_dense_chunk_smem(n, m)
-    if smem > kernels.SMEM_LIMIT:
-        raise ValueError(f"shape needs {smem} B of shared memory "
-                         f"(> {kernels.SMEM_LIMIT})")
+    cs, _ = _prepare(dev.index, n, m)
     outs = [torch.empty_like(t) for t in (x, z, y, z)]
     act = None
     if active is not None:
         act = active.to(device=dev, dtype=torch.int32).contiguous()
     if B:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admm_dense_chunk(
+        err = _lib().admm_dense_chunk(
             *[t.data_ptr() for t in args], *[o.data_ptr() for o in outs],
-            None if act is None else act.data_ptr(), B, m, n, float(sigma),
-            float(alpha), int(n_iters), stream)
+            None if act is None else act.data_ptr(), B, m, n, cs,
+            float(sigma), float(alpha), int(n_iters), stream)
         if err != 0:
             raise RuntimeError(f"admm_dense_chunk launch failed: CUDA error "
                                f"{err}")
