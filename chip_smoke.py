@@ -34,7 +34,23 @@ Phases, each of which must pass:
    ``arm_table_problem`` / ``make_solve(discrete_params())`` on the dense
    QP path, the same checks with the dense kernel's launch count; then
    the same workload on the block path (``structured=True``, its cluster
-   size printed), counts and rate only.
+   size printed), counts and rate only;
+8. the flagship's hard mix (``bench.py``'s second line): the flagship
+   problem and settings on B = 256 lanes of which the first 64 have
+   borderline detour goals (``hard_frac=0.25``), through the same checks
+   as phase 6, with the status and iteration histograms, the counts of
+   the hard lanes, the largest merit coefficient and the host time of
+   each SQP pass against the lanes still live;
+9. the hard mix again with ``max_restarts=2`` and the multi-start family
+   ``pr2ish_restart_family(goals, 30, rows=1)`` as
+   ``params["restart_inits"]``: counts, re-seeded lanes and the block
+   kernel's launches.
+
+Phase 5 also holds, card (float32) against CPU: a borderline-goal pr2ish
+solve that escalates its penalties, with and without the saturated-dual
+rescale, and an arm7 solve on the IPM QP (both against float32), the IPM
+on the arm7 path's first QP and the gather-banded ADMM on the pr2ish
+first QP's rows (both against float64).
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -48,6 +64,7 @@ device is present.
 
 from __future__ import annotations
 
+import bisect
 import concurrent.futures
 import dataclasses
 import json
@@ -60,6 +77,7 @@ import torch
 
 from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
                                                  arm_table_problem,
+                                                 pr2ish_restart_family,
                                                  pr2ish_table_batch,
                                                  pr2ish_table_problem,
                                                  swept_verify)
@@ -72,9 +90,12 @@ from trajopt_tpu_torch.qp.inverse import cholesky_inverse
 from trajopt_tpu_torch.qp.admm_block import (chunk_operands,
                                              prepare_qp_block,
                                              solve_qp_block_prepared)
+from trajopt_tpu_torch.qp.admm_structured import solve_qp_structured
+from trajopt_tpu_torch.qp.ipm import solve_qp_ipm
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
-from trajopt_tpu_torch.sqp.solver import block_qp, build_qp, make_solver
+from trajopt_tpu_torch.sqp.solver import (banded_qp, block_qp, build_qp,
+                                          ipm_config, make_solver)
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -116,6 +137,17 @@ MIN_VERIFIED = 243          # of 256 lanes: 95 %
 # m = 449 dense QP rows (232 collision, 7 goal, 210 box).
 ARM_B, ARM_STEPS = 128, 30
 ARM_MIN_VERIFIED = 122      # of 128 lanes: 95 %
+# The hard mix: the first ceil(0.25 * 256) = 64 lanes on borderline goals.
+HARD_FRAC = 0.25
+# bench.py's SQP iteration histogram edges.
+ITER_EDGES = (0, 3, 5, 9, 17, 33)
+# The borderline seed of the small float32 references: lanes 0 and 1
+# escalate to 100 and 1000 with and without the rescale, and the CPU's
+# counts stay the same at 1, 2 and 4 threads and under four draws of 3e-6
+# perturbations of the inits, so two float32 implementations take the same
+# path.  Most borderline seeds do not (a 3e-6 change moves an escalation
+# or a restart).
+HARD_SMALL_SEED = 37
 
 
 def flagship_params() -> SQPParams:
@@ -555,32 +587,109 @@ def small_qp_step(dev) -> torch.Tensor:
     return solve_qp_block_prepared(prep, lb, ub, x, cfg=cfg).x
 
 
-def small_solve(path: str, dev):
-    """A whole 10-step solve on 3 lanes in float32 on ``dev``: ``"pr2ish"``
-    (flagship settings, LVS 2, block path) or ``"arm7"`` (discrete
-    settings, dense path) -- the inputs of the CPU tests that hold the
-    port's float32 solves against the JAX package's."""
-    if path == "pr2ish":
-        prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2,
-                                       device=dev)
-        solve = make_solver(prob.build(), flagship_params(), structured=True)
-        inits, goals = pr2ish_table_batch(0, 3, 10, dtype=torch.float32,
-                                          device=dev)
-    else:
+def small_solve(path: str, dev, perturb: int | None = None):
+    """A whole 10-step solve on 3 lanes in float32 on ``dev`` -- the inputs
+    of the CPU tests that hold the port's float32 solves against the JAX
+    package's: ``"pr2ish"`` (flagship settings, LVS 2, block path),
+    ``"hard"`` and ``"hard rescale"`` (the same on borderline goals, the
+    latter with ``rescale_duals_on_escalation``), ``"arm7"`` and ``"arm7
+    ipm"`` (discrete settings, dense path, ADMM or IPM).  ``perturb``
+    seeds a uniform +-1e-6 perturbation of the inits' free steps.  Returns
+    (status, SQP iterations, QP solves, x, largest merit coefficient) on
+    the CPU."""
+    if path.startswith("arm7"):
         # Seed 1: its float32 decisions clear their thresholds, so two
         # float32 implementations take the same path (the CPU gives the
         # same counts at any thread count and under 3e-6 perturbations of
         # the inits, and they equal float64's).  With seed 0 a trust-region
         # test lands within rounding of min_approx_improve and the CPU's
-        # own counts change with its thread count (PERF.md).
+        # own counts change with its thread count (PERF.md).  On the IPM
+        # no seed of 0-299 keeps the CPU's counts under perturbations (the
+        # float32 IPM stops at a complementarity gap of ~1e-4); seed 1
+        # takes the same path on the card as on the CPU (of seeds 0-23,
+        # 1, 4 and 12 do; PERF.md).
         prob, _ = arm_table_problem(n_steps=10, device=dev)
-        solve = make_solver(prob.build(), discrete_params())
+        params = discrete_params()
+        if path == "arm7 ipm":
+            params = dataclasses.replace(params, qp_algorithm="ipm")
+        solve = make_solver(prob.build(), params)
         inits, goals = arm_table_batch(1, 3, 10, dtype=torch.float32,
                                        device=dev)
+    else:
+        prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2,
+                                       device=dev)
+        params = flagship_params()
+        if path == "hard rescale":
+            params = dataclasses.replace(params,
+                                         rescale_duals_on_escalation=True)
+        solve = make_solver(prob.build(), params, structured=True)
+        hard = path != "pr2ish"
+        inits, goals = pr2ish_table_batch(
+            HARD_SMALL_SEED if hard else 0, 3, 10, dtype=torch.float32,
+            device=dev, hard_frac=1.0 if hard else 0.0)
     x0 = inits.reshape(3, -1)
+    if perturb is not None:
+        d = goals.shape[1]
+        noise = np.random.default_rng(perturb).uniform(
+            -1e-6, 1e-6, (3, x0.shape[1] - d))
+        x0 = torch.cat([x0[:, :d], x0[:, d:] + torch.as_tensor(
+            noise, dtype=x0.dtype, device=dev)], 1)
     res = solve(x0, *prob.bounds(x0), {"goal": goals})
     return [t.cpu() for t in (res.status, res.n_iter, res.n_qp_solves,
-                              res.x)]
+                              res.x, res.merit_coeffs.amax(-1))]
+
+
+def first_structured_qp(n_steps: int, lanes: int, seed: int, dev):
+    """The pr2ish first QP's rows (LVS 2, initial merit coefficients, trust
+    box 0.1 around the straight-line inits) as the gather-banded QP the
+    solver builds when the rows are not step-aligned.  Returns
+    (StructuredQP, x)."""
+    prob, _ = pr2ish_table_problem(n_steps=n_steps, lvs_substeps=2,
+                                   device=dev)
+    nlp = prob.build()
+    inits, goals = pr2ish_table_batch(seed, lanes, n_steps, device=dev)
+    x = inits.reshape(lanes, -1)
+    params = {"goal": goals}
+    lb, ub = prob.bounds(x)
+    model = nlp_mod.convexify_structured(
+        nlp, x, params, nlp_mod.linear_jacobians(nlp, x, params))
+    coeffs = x.new_full((lanes, nlp_mod.num_cnt_groups(nlp)),
+                        flagship_params().initial_merit_error_coeff)
+    qp = banded_qp(nlp, nlp_mod.structured_band(nlp)[0], model, coeffs,
+                   torch.maximum(lb, x - 0.1), torch.minimum(ub, x + 0.1))
+    return qp, x
+
+
+def hold_ipm(label: str, got, plain, ref) -> None:
+    """The card's float32 IPM x against the CPU's float64 IPM x on the same
+    float32 inputs.  The float32 IPM stops at its own gate (complementarity
+    ~1e-4, the solver's float32 settings), where x is only determined to
+    ~1e-2 of its magnitude along near-degenerate directions; so, as the
+    chunk kernels are held (:func:`hold`), the card may be at most
+    CHUNK_NOISE times the CPU's float32 distance to float64 away from
+    float64, and never needs to be closer than SMALL_XTOL of the
+    magnitude."""
+    got, plain = got.double().cpu(), plain.double().cpu()
+    mag = max(1.0, float(ref.abs().max()))
+    err_k = float((got - ref).abs().max())
+    err_p = float((plain - ref).abs().max())
+    tol = max(CHUNK_NOISE * err_p, SMALL_XTOL * mag)
+    print(f"{label}: against CPU float64: card float32 max |dx| {err_k:.3e} "
+          f"(rel {err_k / mag:.2e}), CPU float32 {err_p:.3e} (rel "
+          f"{err_p / mag:.2e}); tolerance {tol:.3e}")
+    if not err_k <= tol:
+        raise SystemExit(f"{label}: card and CPU differ by {err_k:.3e}")
+
+
+def hold_x(label: str, got, ref) -> None:
+    """Card float32 x against CPU float64 x, within SMALL_XTOL of the
+    solution's magnitude."""
+    dx = float((got.double().cpu() - ref).abs().max())
+    tol = SMALL_XTOL * max(1.0, float(ref.abs().max()))
+    print(f"{label}: card float32 vs CPU float64 max |dx| {dx:.3e}, "
+          f"tolerance {tol:.3e}")
+    if not dx <= tol:
+        raise SystemExit(f"{label}: card and CPU differ by {dx:.3e}")
 
 
 def phase_small_reference():
@@ -600,25 +709,74 @@ def phase_small_reference():
     if not dx <= tol:
         raise SystemExit(f"card and CPU QP solutions differ by {dx:.3e}")
 
-    for path, counter in (("pr2ish", fb.COUNTER), ("arm7", fd.COUNTER)):
-        counter.reset()
-        gpu = small_solve(path, torch.device("cuda"))
-        if counter.launches == 0:
+    # The IPM on the arm7 path's first QP (B 128, n 210, m 449), and the
+    # gather-banded ADMM on the pr2ish 10-step first QP's rows (all 450
+    # iterations, eps 0), card float32 against CPU float64 on the same
+    # float32 inputs.
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    qp, x0 = arm7_first_qp(ARM_STEPS, ARM_B, 0, cuda)
+    eps = discrete_params().qp.eps_abs
+    t0 = time.time()
+    got = solve_qp_ipm(qp, x0, cfg=ipm_config(torch.float32, eps))
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    qp_cpu = dense.QPData(*(t.cpu() for t in qp))
+    ref = solve_qp_ipm(dense.QPData(*(t.double() for t in qp_cpu)),
+                       x0.double().cpu(), cfg=ipm_config(torch.float64, eps))
+    plain = solve_qp_ipm(qp_cpu, x0.cpu(), cfg=ipm_config(torch.float32, eps))
+    print(f"IPM on the arm7 path's first QP (B {ARM_B}, n {qp.A.shape[2]}, "
+          f"m {qp.A.shape[1]}): card {t_card:.2f} s, converged "
+          f"{int(got.converged.sum())}/{ARM_B} (CPU float32 "
+          f"{int(plain.converged.sum())}, float64 "
+          f"{int(ref.converged.sum())}), Newton steps card "
+          f"{int(got.iters.min())}-{int(got.iters.max())}, CPU float64 "
+          f"{int(ref.iters.min())}-{int(ref.iters.max())}")
+    hold_ipm("IPM arm7 first QP", got.x, plain.x, ref.x)
+    cfg = dataclasses.replace(flagship_params().qp, eps_abs=0.0, eps_rel=0.0)
+    sqp_, x0 = first_structured_qp(10, 3, 5, cuda)
+    got = solve_qp_structured(sqp_, x0, cfg=cfg)
+    sqp_, x0 = first_structured_qp(10, 3, 5, cpu)
+    ref = solve_qp_structured(sqp_, x0, cfg=cfg)
+    hold_x(f"gather-banded ADMM on the pr2ish first QP's rows (10 steps, "
+           f"3 lanes, m {sqp_.C.m}, {cfg.max_iter} iterations)", got.x,
+           ref.x)
+
+    for path, counter in (("pr2ish", fb.COUNTER), ("hard", fb.COUNTER),
+                          ("hard rescale", fb.COUNTER), ("arm7", fd.COUNTER),
+                          ("arm7 ipm", None)):
+        if counter is not None:
+            counter.reset()
+        gpu = small_solve(path, cuda)
+        if counter is not None and counter.launches == 0:
             raise SystemExit(f"small {path} solve did not launch its kernel")
-        cpu = small_solve(path, torch.device("cpu"))
-        dx = float((gpu[3] - cpu[3]).abs().max())
+        cpu_res = small_solve(path, cpu)
+        dx = (gpu[3] - cpu_res[3]).abs().amax(-1)
+        # x is held, as the kernels are, to CHUNK_NOISE times the spread
+        # of the CPU's float32 x under a 1e-6 change of the inits, and
+        # never closer than SOLVE_XTOL: an escalated lane's QPs stop short
+        # of eps, and so does the float32 IPM, and their x moves by 1e-3
+        # to 5e-2 under such a change (PERF.md); the other lanes' by ~1e-5.
+        spread = (small_solve(path, cpu, perturb=0)[3]
+                  - cpu_res[3]).abs().amax(-1)
+        tol = torch.clamp_min(CHUNK_NOISE * spread, SOLVE_XTOL)
+        if path.startswith("hard") and not float(cpu_res[4].max()) > \
+                flagship_params().initial_merit_error_coeff:
+            raise SystemExit(f"small {path} solve did not escalate")
         names = ("status", "SQP iterations", "QP solves")
         print(f"small solve ({path} 10 steps, 3 lanes, float32): card vs "
               f"CPU " + ", ".join(f"{n} {g.tolist()} vs {c.tolist()}"
-                                  for n, g, c in zip(names, gpu, cpu))
-              + f"; max |dx| {dx:.3e}, tolerance {SOLVE_XTOL:.0e}")
-        for n, g, c in zip(names, gpu, cpu):
+                                  for n, g, c in zip(names, gpu, cpu_res))
+              + f"; largest merit coefficient per lane "
+              f"{cpu_res[4].tolist()}; max |dx| per lane "
+              f"{[f'{v:.3e}' for v in dx.tolist()]}, tolerance "
+              f"{[f'{v:.1e}' for v in tol.tolist()]}")
+        for n, g, c in zip(names, gpu, cpu_res):
             if not torch.equal(g, c):
                 raise SystemExit(f"small {path} solve: {n} differ between "
                                  f"card and CPU")
-        if not dx <= SOLVE_XTOL:
+        if not bool((dx <= tol).all()):
             raise SystemExit(f"small {path} solve: card and CPU x differ by "
-                             f"{dx:.3e}")
+                             f"{dx.tolist()}")
 
 
 # The solver's profiler ranges (torch.profiler.record_function), one per
@@ -629,58 +787,142 @@ def phase_small_reference():
 LAYERS = ("sqp.convexify", "qp.prepare", "sqp.qp", "sqp.evaluate")
 
 
-def layer_split(prof) -> str:
-    """Host time (inclusive) and device time of the kernels launched inside
-    each of the solver's ranges, summed over their calls."""
-    tot = {name: [0.0, 0.0, 0] for name in LAYERS}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name in tot:
-            t = tot[e.name]
-            t[0] += e.cpu_time_total
-            t[1] += e.device_time_total
-            t[2] += 1
-    return "; ".join(f"{n} host {h / 1e3:.1f} ms, device {d / 1e3:.1f} ms "
-                     f"({c} calls)" for n, (h, d, c) in tot.items())
+class Trace:
+    """A profile's raw events, read once and without building torch's
+    event tree (which takes tens of seconds on a solve's trace): the
+    device spans (kernels and copies; the ranges' own device annotations
+    left out), the solver's ranges on the host, and for each device span
+    the host start of the op that launched it (its linked correlation)."""
+
+    def __init__(self, prof):
+        cuda = torch.autograd.DeviceType.CUDA
+        self.ranges = {name: [] for name in LAYERS}
+        self.spans = []                 # (name, start, end, linked id)
+        starts = {}                     # correlation id -> host start
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == cuda:
+                if name not in self.ranges:
+                    self.spans.append((name, e.start_ns(), e.end_ns(),
+                                       e.linked_correlation_id()))
+                continue
+            if name in self.ranges:
+                self.ranges[name].append((e.start_ns(), e.end_ns()))
+            starts.setdefault(e.correlation_id(), e.start_ns())
+        self.launch = [starts.get(c) for _, _, _, c in self.spans]
+
+    def layer_split(self) -> str:
+        """Host time (inclusive) of each of the solver's ranges and device
+        time of the spans launched inside it, summed over its calls."""
+        out = []
+        for name, rs in self.ranges.items():
+            rs = sorted(rs)
+            begins = [a for a, _ in rs]
+            dev = 0
+            for (_, s, e, _), t in zip(self.spans, self.launch):
+                i = bisect.bisect_right(begins, t) - 1 if t is not None \
+                    else -1
+                if i >= 0 and t <= rs[i][1]:
+                    dev += e - s
+            host = sum(b - a for a, b in rs)
+            out.append(f"{name} host {host / 1e6:.1f} ms, device "
+                       f"{dev / 1e6:.1f} ms ({len(rs)} calls)")
+        return "; ".join(out)
+
+    def busy_share(self, wall_s: float) -> float | None:
+        """Share of the wall time during which a device span ran (their
+        union), or None when the trace has none."""
+        spans = sorted((s, e) for _, s, e, _ in self.spans)
+        if not spans:
+            return None
+        busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        return busy / (wall_s * 1e9)
+
+    def kernel_time(self, kernel: str) -> tuple[int, float]:
+        """(launches, device ms) of the spans whose name holds
+        ``kernel``."""
+        spans = [e - s for name, s, e, _ in self.spans if kernel in name]
+        return len(spans), sum(spans) / 1e6
+
+    def top(self, k: int = 10) -> str:
+        """The ``k`` device spans with the most time, summed by name."""
+        tot = {}
+        for name, s, e, _ in self.spans:
+            n, t = tot.get(name, (0, 0))
+            tot[name] = (n + 1, t + e - s)
+        rows = sorted(tot.items(), key=lambda kv: -kv[1][1])[:k]
+        return "; ".join(f"{name[:60]} {t / 1e6:.2f} ms ({n})"
+                         for name, (n, t) in rows)
 
 
-def device_busy_share(prof, wall_us: float) -> float | None:
-    """Share of the wall time during which a kernel ran (union of the
-    profiler's device intervals, the ranges' own annotations left out),
-    or None when the trace has none."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name not in LAYERS)
-    if not spans:
-        return None
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    return busy / wall_us
+def pass_timer():
+    """(callback, passes): a solver callback that records the host clock
+    and the number of live lanes at the top of every SQP pass (no device
+    sync: it reads shapes only), and that list of (seconds, lanes)."""
+    passes = []
+
+    def cb(total_iter, x, *_):
+        passes.append((time.perf_counter(), x.shape[0]))
+
+    return cb, passes
 
 
-def kernel_time(prof, kernel: str) -> tuple[int, float]:
-    """(launches, device ms) of the traced kernels whose name holds
-    ``kernel``."""
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return len(spans), sum(spans) / 1e3
+def print_passes(label: str, passes, end: float) -> None:
+    """Host seconds of each SQP pass beside its live lanes."""
+    ends = [t for t, _ in passes[1:]] + [end]
+    rows = [(n, e - t) for (t, n), e in zip(passes, ends)]
+    print(f"{label}: {len(rows)} SQP passes, (live lanes, ms) per pass: "
+          + " ".join(f"({n}, {1e3 * dt:.1f})" for n, dt in rows))
+    few = [dt for n, dt in rows if n <= 16]
+    many = [dt for n, dt in rows if n > 16]
+    if few and many:
+        print(f"{label}: mean ms per pass with > 16 live lanes "
+              f"{1e3 * np.mean(many):.1f} ({len(many)} passes), with <= 16 "
+              f"{1e3 * np.mean(few):.1f} ({len(few)} passes)")
+
+
+def print_outcome(label: str, res, verified, n_hard: int) -> None:
+    """Status and SQP-iteration histograms (bench.py's edges), the largest
+    merit coefficient, and the counts of the first ``n_hard`` lanes."""
+    it = res.n_iter.cpu().numpy()
+    hist = np.histogram(it, bins=ITER_EDGES)[0]
+    status = torch.bincount(res.status.cpu().long(), minlength=6).tolist()
+    print(f"{label}: statuses " + ", ".join(
+        f"{SQPStatus.NAMES[k]} {v}" for k, v in enumerate(status) if v)
+          + "; SQP iterations histogram " + " ".join(
+              f"[{a},{b}):{h}" for a, b, h in zip(ITER_EDGES[:-1],
+                                                  ITER_EDGES[1:], hist))
+          + f" max={int(it.max())}; largest merit coefficient "
+          f"{float(res.merit_coeffs.max()):.3g}")
+    if n_hard:
+        conv = res.status[:n_hard] == SQPStatus.CONVERGED
+        print(f"{label}: hard lanes (first {n_hard}): converged "
+              f"{int(conv.sum())}/{n_hard}, converged and swept-verified "
+              f"{int(verified[:n_hard].sum())}/{n_hard}, mean SQP "
+              f"iterations {float(res.n_iter[:n_hard].float().mean()):.2f}"
+              f"; other lanes {float(res.n_iter[n_hard:].float().mean()):.2f}")
 
 
 def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
                n_dof: int, counter, kernel: str, smi: str,
-               min_verified: int | None, profile: bool = True) -> int:
+               min_verified: int | None, profile: bool = True,
+               n_hard: int = 0, timed_solve=None) -> int:
     """A warm-up solve, then the measured solve of ``B`` seeded lanes with
     the kernel's launch count set to 0 just before and read just after;
     the independent swept check of every lane; with ``profile`` a
-    profiled repeat for the device's idle share, its top kernels and the
-    in-path time of the chunk kernel ``kernel``.
+    profiled repeat for the device's idle share, the layer split, its top
+    kernels and the in-path time of the chunk kernel ``kernel``.  With ``n_hard`` the
+    status and iteration histograms and the first ``n_hard`` lanes'
+    counts; with ``timed_solve`` (the same solve made with a
+    ``pass_timer`` callback, and its list) a repeat that prints the host
+    time of each SQP pass.
     Fails below ``min_verified`` converged and swept-verified lanes or
     when the kernel never launched.  Returns the launch count."""
     inits, goals = batch(0, B, n_steps)
@@ -720,11 +962,22 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
           f"verified solves/s on {smi}; kernel launches {launches}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB")
+    if n_hard:
+        print_outcome(label, res, verified, n_hard)
     if launches <= 0:
         raise SystemExit(f"{label}: the solve never launched its kernel")
     if min_verified is not None and n_ver < min_verified:
         raise SystemExit(f"{label}: only {n_ver}/{B} lanes converged and "
                          f"verified (< {min_verified})")
+    if timed_solve is not None:
+        tsolve, passes = timed_solve
+        passes.clear()
+        t0 = time.time()
+        tsolve(inits, {"goal": goals})
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        print(f"{label}: pass-timed repeat {time.time() - t0:.3f} s")
+        print_passes(label, passes, end)
     if not profile:
         return launches
 
@@ -735,7 +988,9 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
         solve(inits, {"goal": goals})
         torch.cuda.synchronize()
         pwall = time.time() - t0
-    share = device_busy_share(prof, pwall * 1e6)
+    t0 = time.time()
+    trace = Trace(prof)
+    share = trace.busy_share(pwall)
     if share is None:
         print(f"{label}: device idle share not measured (no device events "
               f"traced)")
@@ -743,13 +998,13 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
         print(f"{label}: profiled solve {pwall:.3f} s wall, device busy "
               f"{share:.4f}, idle share {1 - share:.4f} (under the "
               f"profiler)")
-        print(f"{label}: by layer: {layer_split(prof)}")
-        n_k, ms_k = kernel_time(prof, kernel)
+        print(f"{label}: by layer: {trace.layer_split()}")
+        n_k, ms_k = trace.kernel_time(kernel)
         print(f"{label}: {kernel} in the path: {launches} launches "
               f"counted, {n_k} traced, {ms_k:.3f} ms device time "
               f"({ms_k / max(n_k, 1):.4f} ms each)")
-        print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                        row_limit=12, max_name_column_width=60))
+        print(f"{label}: top device time by kernel: {trace.top()}")
+    print(f"{label}: reading the profile took {time.time() - t0:.1f} s")
     return launches
 
 
@@ -783,19 +1038,88 @@ def phase_arm7(smi: str) -> int:
     return launches
 
 
+def hard_batch(seed: int, B: int, n_steps: int):
+    return pr2ish_table_batch(seed, B, n_steps, hard_frac=HARD_FRAC)
+
+
+def phase_hard_mix(smi: str) -> int:
+    """bench.py's hard-mix line at full size: the flagship with 64 of 256
+    lanes on borderline goals."""
+    prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
+    cb, passes = pass_timer()
+    return drive_path("hard mix", prob.make_solve(flagship_params(),
+                                                  structured=True),
+                      scene, hard_batch, B, 30, 8, fb.COUNTER,
+                      "admm_block_chunk_kernel", smi, MIN_VERIFIED,
+                      n_hard=int(np.ceil(HARD_FRAC * B)),
+                      timed_solve=(prob.make_solve(
+                          flagship_params(), callback=cb, structured=True),
+                          passes))
+
+
+def phase_family(smi: str) -> int:
+    """The hard mix's measured batch with two restarts, the last one
+    re-seeded from the multi-start family (bench.py's
+    BENCH_RESTART_FAMILY line with BENCH_RESTARTS=2), one solve."""
+    prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
+    solve = prob.make_solve(dataclasses.replace(flagship_params(),
+                                                max_restarts=2),
+                            structured=True)
+    inits, goals = hard_batch(1, B, 30)
+    family = pr2ish_restart_family(goals, 30, rows=1)
+    torch.cuda.synchronize()
+    fb.COUNTER.reset()
+    t0 = time.time()
+    res = solve(inits, {"goal": goals, "restart_inits": family})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fb.COUNTER.launches
+    if tuple(res.x.shape) != (B, 240) or not bool(torch.isfinite(res.x).all()):
+        raise SystemExit("family: trajectories not finite or of the wrong "
+                         "shape")
+    mins = swept_verify(scene, res.x.reshape(B, 30, 8))
+    conv = res.status == SQPStatus.CONVERGED
+    verified = conv & (mins > 0)
+    n_ver = int(verified.sum())
+    # every trust-region QP adds one exact evaluation, the start one and a
+    # re-seed one more
+    reseeded = int(((res.n_func_evals - res.n_qp_solves - 1) > 0).sum())
+    print(f"family: converged {int(conv.sum())}/{B}, converged and "
+          f"swept-verified {n_ver}/{B}, re-seeded lanes {reseeded}, mean SQP "
+          f"iterations {float(res.n_iter.float().mean()):.2f}; {wall:.3f} s "
+          f"-> {n_ver / wall:.2f} verified solves/s on {smi}; kernel "
+          f"launches {launches}")
+    print_outcome("family", res, verified, int(np.ceil(HARD_FRAC * B)))
+    if launches <= 0:
+        raise SystemExit("family: the solve never launched its kernel")
+    if n_ver < MIN_VERIFIED:
+        raise SystemExit(f"family: only {n_ver}/{B} lanes converged and "
+                         f"verified (< {MIN_VERIFIED})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     t_start = time.time()
-    smi = phase_device()
-    phase_build()
-    block = phase_kernel_check(dev)
-    dense_k = phase_dense_kernel_check(dev)
-    phase_small_reference()
-    block["launches"] = phase_flagship(smi)
-    dense_k["launches"] = phase_arm7(smi)
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        print(f"phase {name}: {time.time() - t0:.1f} s")
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    block = timed("block kernel", phase_kernel_check, dev)
+    dense_k = timed("dense kernel", phase_dense_kernel_check, dev)
+    timed("small references", phase_small_reference)
+    block["launches"] = timed("flagship", phase_flagship, smi)
+    dense_k["launches"] = timed("arm7", phase_arm7, smi)
+    block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi)
+    block["family_launches"] = timed("family", phase_family, smi)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [block, dense_k]}))
     print(json.dumps({"ok": True, "device": {

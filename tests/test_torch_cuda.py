@@ -283,3 +283,147 @@ def test_small_dense_solve_on_the_card(cuda):
     assert fd.COUNTER.launches > before
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()
+
+
+def _held(card, plain, ref, floor=1e-3):
+    """The card's float32 result against the CPU's float64 one: at most 4x
+    the CPU float32 result's own distance to float64, plus ``floor`` of
+    the magnitude (the pattern of the chunk-kernel tests above)."""
+    card, plain = card.double().cpu(), plain.double().cpu()
+    err_k = (card - ref).abs().max()
+    err_p = (plain - ref).abs().max()
+    return err_k <= 4 * err_p + floor * max(1.0, float(ref.abs().max()))
+
+
+def test_ipm_on_the_card(cuda):
+    """solve_qp_ipm in float32 on the card (the solver's float32 settings)
+    against float64 on the CPU, on random QPs with hard inequality, hard
+    equality and penalty rows."""
+    from trajopt_tpu_torch.qp.admm import QPData
+    from trajopt_tpu_torch.qp.ipm import IPMConfig, solve_qp_ipm
+    rng = np.random.default_rng(0)
+    B, n, m = 16, 12, 18
+    G = rng.standard_normal((B, n, n))
+    P = G @ G.transpose(0, 2, 1) + 0.5 * np.eye(n)
+    center = rng.standard_normal((B, m)) * 0.3
+    half = 0.2 + rng.uniform(size=(B, m))
+    l, u = center - half, center + half
+    l[:, :2] = u[:, :2] = center[:, :2]
+    c = np.full((B, m), np.inf)
+    c[:, 2:8] = 5.0
+    qp = [P, rng.standard_normal((B, n)), rng.standard_normal((B, m, n)),
+          l, u, c]
+    f32 = IPMConfig(eps=2e-5, eps_res=1e-3, reg=1e-7)
+    got = solve_qp_ipm(QPData(*(torch.as_tensor(a, dtype=torch.float32,
+                                                device=cuda) for a in qp)),
+                       cfg=f32)
+    plain = solve_qp_ipm(QPData(*(torch.as_tensor(a, dtype=torch.float32)
+                                  for a in qp)), cfg=f32)
+    ref = solve_qp_ipm(QPData(*(torch.as_tensor(a, dtype=torch.float32)
+                                .double() for a in qp)))
+    assert ref.converged.all()
+    assert int(got.converged.sum()) >= int(plain.converged.sum()) - 1
+    assert _held(got.x, plain.x, ref.x)
+
+
+def test_structured_qp_on_the_card(cuda):
+    """solve_qp_structured (gather-banded ADMM) in float32 on the card
+    against float64 on the CPU, 600 iterations (eps 0)."""
+    from trajopt_tpu_torch.qp import banded as bd
+    from trajopt_tpu_torch.qp.admm_structured import (StructuredQP,
+                                                      solve_qp_structured)
+    rng = np.random.default_rng(1)
+    B, n, m, w = 8, 24, 15, 6
+    G = rng.standard_normal((B, n, n)) * 0.3
+    ctr = rng.standard_normal((B, m))
+    arrays = [G @ G.transpose(0, 2, 1) + 0.2 * np.eye(n),
+              rng.standard_normal((B, n)), rng.standard_normal((B, m, w)),
+              ctr - 0.4, ctr + 0.4,
+              np.where(rng.uniform(size=(B, m)) < 0.3, np.inf, 5.0),
+              rng.standard_normal((B, n)) - 2.0,
+              rng.standard_normal((B, n)) + 2.0]
+    starts = rng.integers(0, n - w + 1, size=m)
+    cfg = ADMMConfig(eps_abs=0.0, eps_rel=0.0, max_iter=600, check_every=50,
+                     adaptive_rho=False)
+
+    def solve(dtype, dev):
+        t = [torch.as_tensor(a, dtype=torch.float32).to(dtype=dtype,
+                                                         device=dev)
+             for a in arrays]
+        qp = StructuredQP(t[0], t[1], bd.make_banded(t[2], starts, n), *t[3:])
+        return solve_qp_structured(qp, torch.zeros(B, n, dtype=dtype,
+                                                   device=dev), cfg=cfg)
+
+    got = solve(torch.float32, cuda)
+    assert got.x.device.type == cuda.type
+    assert _held(got.x, solve(torch.float32, "cpu").x,
+                 solve(torch.float64, "cpu").x)
+
+
+def _plain_chunk(*args, active=None, **kw):
+    """``fused_block.chunk`` with the plain version on any device."""
+    state, stats = fb.chunk_plain(*args, **kw)
+    if active is None:
+        return state, stats
+    state = tuple(torch.where(active[:, None], new, old)
+                  for new, old in zip(state, args[15:]))
+    stats = type(stats)(*(torch.where(active, v, torch.full_like(
+        v, float("nan"))) for v in stats))
+    return state, stats
+
+
+def test_restart_family_solve_on_the_card(cuda, monkeypatch):
+    """A pr2ish borderline solve (10 steps, 3 lanes, seed 7) whose lane 0
+    runs out of its one merit increase and re-seeds from the multi-start
+    family at its one restart.  In float64 (the chunk's plain version on
+    the card) the card and the CPU agree: equal counts, x within 1e-6.  In
+    float32 the card (block kernel) takes the CPU's path (equal status and
+    counts) and agrees with the plain chunk on the card within 4x the
+    CPU's own float32 spread under a 1e-6 change of the inits; card and
+    CPU x differ by ~1e-2 on the re-seeded lane, with the plain chunk on
+    the card as with the kernel: the float32 library linear algebra of
+    the two devices, not the kernel, moves it."""
+    import dataclasses
+
+    from trajopt_tpu_torch.models.benchmarks import pr2ish_restart_family
+    from trajopt_tpu_torch.sqp.solver import make_solver
+    qp = ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
+                    check_every=150, adaptive_rho=False, rho_dual_scale=0.1,
+                    ns_refresh=True, ns_tol=1e-4, ns_power_iters=4)
+    params = dataclasses.replace(SQPParams(qp=qp), max_restarts=1,
+                                 max_merit_coeff_increases=1)
+
+    def solve(dev, dtype=torch.float32, shift=None, plain=False):
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(fb, "chunk", _plain_chunk)
+            prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2,
+                                           device=dev)
+            inits, goals = pr2ish_table_batch(7, 3, 10, dtype=dtype,
+                                              device=dev, hard_frac=1.0)
+            x0 = inits.reshape(3, -1)
+            if shift is not None:
+                x0 = torch.cat([x0[:, :8], x0[:, 8:] + shift.to(x0)], 1)
+            res = make_solver(prob.build(), params, structured=True)(
+                x0, *prob.bounds(x0),
+                {"goal": goals,
+                 "restart_inits": pr2ish_restart_family(goals, 10)})
+        return res._replace(**{k: v.cpu() for k, v in res._asdict().items()})
+
+    counts = ("status", "n_iter", "n_qp_solves", "n_func_evals")
+    card64 = solve(cuda, torch.float64, plain=True)
+    cpu64 = solve("cpu", torch.float64)
+    for name in counts:
+        assert torch.equal(getattr(card64, name), getattr(cpu64, name)), name
+    assert (card64.x - cpu64.x).abs().max() <= 1e-6
+
+    card, cpu = solve(cuda), solve("cpu")
+    for name in counts:
+        assert torch.equal(getattr(card, name), getattr(cpu, name)), name
+    assert int(((cpu.n_func_evals - cpu.n_qp_solves - 1) > 0).sum()) >= 1
+    noise = torch.as_tensor(np.random.default_rng(0).uniform(
+        -1e-6, 1e-6, (3, 72)))
+    spread = (solve("cpu", shift=noise).x - cpu.x).abs().amax(-1)
+    plain = solve(cuda, plain=True)
+    tol = torch.clamp_min(4 * spread, 1e-4)
+    assert ((card.x - plain.x).abs().amax(-1) <= tol).all()

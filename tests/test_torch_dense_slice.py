@@ -242,11 +242,14 @@ def test_arm7_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 def test_dense_path_options_that_wait_raise():
+    """The IPM runs on the dense path only (a ValueError elsewhere, as in
+    JAX); the lvs_discrete evaluator still waits."""
     prob, _ = tbench.arm_table_problem(n_steps=4, device="cpu")
     _, params = _jax_params()
-    with pytest.raises(NotImplementedError, match="ipm"):
-        make_solver(prob.build(), dataclasses.replace(params,
-                                                      qp_algorithm="ipm"))
+    ipm = dataclasses.replace(params, qp_algorithm="ipm")
+    make_solver(prob.build(), ipm)
+    with pytest.raises(ValueError, match="dense path"):
+        make_solver(prob.build(), ipm, structured=True)
     with pytest.raises(ValueError, match="lvs_discrete"):
         tbench.arm_table_problem(n_steps=4, evaluator="lvs_discrete",
                                  device="cpu")

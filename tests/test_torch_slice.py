@@ -296,7 +296,9 @@ def test_import_leaves_jax_out():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'trajopt_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 25, mods\n"
+        "new = {'callbacks', 'qp.ipm', 'qp.banded', 'qp.admm_structured'}\n"
+        "assert {'trajopt_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'trajopt_tpu' or "
         "k.startswith('trajopt_tpu.'))\n"

@@ -2,10 +2,11 @@
 and the arm7 table workload.
 
 Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``,
-``pr2ish_table_batch``, ``arm_table_problem`` and ``arm_table_batch``),
-plus :func:`swept_verify`, the independent post-solve swept-clearance check
-of the repository's ``bench.py``.  Goals come from a numpy seed (the JAX
-builders draw them with ``jax.random``).
+``pr2ish_table_batch`` with its hard mix, ``pr2ish_restart_family``,
+``arm_table_problem`` and ``arm_table_batch``), plus :func:`swept_verify`,
+the independent post-solve swept-clearance check of the repository's
+``bench.py``.  Goals come from a numpy seed (the JAX builders draw them
+with ``jax.random``).
 """
 
 from __future__ import annotations
@@ -78,6 +79,28 @@ PR2ISH_GOAL = np.array([0.15, -0.3, 0.3, -0.5, -0.9, 0.0, -1.0, 0.0])
 # to the table, large on the distance-insensitive roll joints.
 PR2ISH_GOAL_SCALE = np.array([0.01, 0.02, 0.015, 0.03, 0.03, 0.2, 0.04,
                               0.3])
+# Detour-forcing goal mode: the wrist ends under the table slab, inside its
+# footprint, collision-free at the goal but with straight-line inits that
+# drag the forearm through the table edge.
+PR2ISH_GOAL_HARD = np.array([0.143, -0.158, 0.853, 0.644, -0.28, 1.399,
+                             -1.347, -0.736])
+# Borderline goal cluster of the hard mix: the wrist high over the table,
+# collision-free at the goal; noisy lanes around these converge after
+# several penalty escalations or run out of merit increases.
+PR2ISH_GOALS_BORDERLINE = np.array([
+    [0.1143, -0.5558, -0.1523, 0.0904, -0.5861, 1.357, -1.2312, 0.7872],
+    [0.2411, 0.0659, -0.3671, -1.8761, -0.7197, 3.0094, -1.1766, -2.5179],
+    [0.2331, -0.4895, -0.2305, -0.6582, -0.3882, -1.6229, -1.8168,
+     -3.0383],
+])
+# Goal noise per joint of the borderline lanes.
+PR2ISH_HARD_SCALE = np.array([0.01, 0.02, 0.02, 0.03, 0.03, 0.1, 0.04, 0.1])
+# Vias of the restart family: the easy goal (straight-line reachable from
+# home), then a torso-raised arm-up detour.
+PR2ISH_RESTART_VIAS = np.array([
+    PR2ISH_GOAL,
+    [0.30, -0.3, -0.4, -0.5, -0.9, 0.0, -1.0, 0.0],
+])
 
 
 def pr2ish_table_problem(n_steps: int = 30, *, evaluator: str = "cast",
@@ -106,23 +129,60 @@ def pr2ish_table_problem(n_steps: int = 30, *, evaluator: str = "cast",
     return prob, scene
 
 
-def pr2ish_goals(seed: int, batch: int) -> np.ndarray:
+def pr2ish_goals(seed: int, batch: int, hard_frac: float = 0.0
+                 ) -> np.ndarray:
     """[batch, 8] goals: PR2ISH_GOAL plus seeded normal noise, clipped
-    0.02 inside the joint limits."""
+    0.02 inside the joint limits.  ``hard_frac`` gives the first
+    ``ceil(hard_frac * batch)`` lanes the borderline goals instead (cycling
+    through PR2ISH_GOALS_BORDERLINE) plus their own noise, drawn from a
+    second generator derived from the seed (the JAX builder's
+    ``fold_in(key, 1)``); the other lanes keep the goals ``hard_frac=0``
+    gives."""
     noise = PR2ISH_GOAL_SCALE * np.random.default_rng(seed).standard_normal(
         (batch, 8))
+    goals = PR2ISH_GOAL[None, :] + noise
+    if hard_frac > 0.0:
+        n_hard = int(np.ceil(hard_frac * batch))
+        hnoise = PR2ISH_HARD_SCALE * np.random.default_rng(
+            (seed, 1)).standard_normal((n_hard, 8))
+        base = PR2ISH_GOALS_BORDERLINE[np.arange(n_hard)
+                                       % len(PR2ISH_GOALS_BORDERLINE)]
+        goals[:n_hard] = base + hnoise
     tree = pr2ish()
-    return np.clip(PR2ISH_GOAL[None, :] + noise, tree.lower + 0.02,
-                   tree.upper - 0.02)
+    return np.clip(goals, tree.lower + 0.02, tree.upper - 0.02)
 
 
 def pr2ish_table_batch(seed: int, batch: int, n_steps: int = 30,
-                       dtype=None, device=None):
+                       dtype=None, device=None, hard_frac: float = 0.0):
     """(inits [B, n_steps, 8], goals [B, 8]): randomized goals around
-    PR2ISH_GOAL from a numpy seed and straight-line inits from home, on
-    ``device`` (None: CUDA, raising when there is none)."""
-    return _table_batch(pr2ish_goals(seed, batch), PR2ISH_HOME, n_steps,
-                        dtype, device)
+    PR2ISH_GOAL from a numpy seed (the first ``ceil(hard_frac * B)`` lanes
+    on the borderline goals, see :func:`pr2ish_goals`) and straight-line
+    inits from home, on ``device`` (None: CUDA, raising when there is
+    none)."""
+    return _table_batch(pr2ish_goals(seed, batch, hard_frac), PR2ISH_HOME,
+                        n_steps, dtype, device)
+
+
+def pr2ish_restart_family(goals: torch.Tensor, n_steps: int = 30,
+                          rows: int = 1) -> torch.Tensor:
+    """Multi-start restart family: ``[B, rows, n_steps, 8]`` alternative
+    inits per lane, home -> via -> goal with the via at step
+    ``n_steps // 2`` (row 0 through PR2ISH_GOAL, row 1 through the
+    torso-raised detour), on ``goals``' device and dtype.  Pass it as
+    ``params["restart_inits"]`` with ``SQPParams.max_restarts >= rows + 1``
+    so that restart 0 stays in place.  As in the JAX builder, ``rows`` is
+    cut to the two vias without notice."""
+    goals = torch.as_tensor(goals)
+    kw = dict(dtype=goals.dtype, device=goals.device)
+    home = torch.as_tensor(PR2ISH_HOME, **kw).expand_as(goals)
+    h = n_steps // 2
+    out = []
+    for via in PR2ISH_RESTART_VIAS[:rows]:
+        via = torch.as_tensor(via, **kw).expand_as(goals)
+        a = interpolated_init(home, via, h + 1)
+        b = interpolated_init(via, goals, n_steps - h)
+        out.append(torch.cat([a, b[:, 1:]], 1))
+    return torch.stack(out, 1)
 
 
 def _table_batch(goals: np.ndarray, home: np.ndarray, n_steps, dtype,

@@ -96,17 +96,21 @@ class TrajOptProblem:
             ub[:, :, j] = x0[:, :, j]
         return lb.reshape(B, -1), ub.reshape(B, -1)
 
-    def make_solve(self, sqp: SQPParams = SQPParams(),
+    def make_solve(self, sqp: SQPParams = SQPParams(), callback=None,
                    structured: bool = False, device=None):
         """Returns ``solve(init_traj, params) -> SQPResult`` over a batch:
         ``init_traj [B, n_steps, n_dof_total]`` (or ``[B, n]``), ``params``
-        a dict of per-lane arrays.  Runs on ``device``, else the problem's
-        device, else CUDA (raising when there is none); float32 on the
-        card, float64 on the CPU.  ``structured=True`` solves the QPs on
-        the block-banded path (needs banded Jacobians on every constraint
-        and penalty set), the default on the dense path."""
+        a dict of per-lane arrays (``"restart_inits"`` among them: a
+        multi-start family, see ``make_solver``).  Runs on ``device``, else
+        the problem's device, else CUDA (raising when there is none);
+        float32 on the card, float64 on the CPU.  ``structured=True`` solves
+        the QPs on the block-banded path (needs banded Jacobians on every
+        constraint and penalty set), the default on the dense path;
+        ``callback`` is the solver's per-iteration callback
+        (``callbacks.py``)."""
         nlp = self.build()
-        solver = make_solver(nlp, sqp=sqp, structured=structured)
+        solver = make_solver(nlp, sqp=sqp, callback=callback,
+                             structured=structured)
         dev = resolve_device(device if device is not None else self.device)
         dtype = resolve_dtype(dev)
 

@@ -37,9 +37,10 @@ class SQPStatus:
 @dataclasses.dataclass(frozen=True)
 class SQPParams:
     """Trust-region SQP settings (see the JAX counterpart for the reasoning
-    behind each extension field).  ``max_time`` and ``qp_algorithm`` are
-    accepted for field-for-field conversion; the port's solver has no
-    wall-clock limit and runs the ADMM block path only."""
+    behind each extension field).  ``qp_algorithm`` is ``"admm"`` or
+    ``"ipm"`` (the dense path only); ``max_time`` is accepted for
+    field-for-field conversion, and the solver, like the JAX one, has no
+    wall-clock limit."""
 
     improve_ratio_threshold: float = 0.25
     min_trust_box_size: float = 1e-4

@@ -1,11 +1,17 @@
 """Trust-region SQP with L1 exact-penalty outer loop, on batches of lanes.
 
-Counterpart of ``trajopt_tpu/sqp/solver.py`` (``make_solver``), dense and
-block-banded QP branches: the algorithm of
-``sco::BasicTrustRegionSQP::optimize()`` as three nested loops -- penalty
-escalation, SQP convexification and the trust-region accept/reject loop --
-with the ADMM warm start (and, on the block path, the KKT inverse) carried
-across iterations.
+Counterpart of ``trajopt_tpu/sqp/solver.py`` (``make_solver``): the
+algorithm of ``sco::BasicTrustRegionSQP::optimize()`` as three nested
+loops -- penalty escalation, SQP convexification and the trust-region
+accept/reject loop -- with the ADMM warm start (and, on the block path, the
+KKT inverse) carried across iterations.  Its QP back ends: the dense ADMM
+(``qp/admm.py``) or the dense IPM (``qp/ipm.py``, ``qp_algorithm="ipm"``);
+with ``structured=True`` the block-banded ADMM (``qp/admm_block.py``) where
+the row windows are step-aligned, else the gather-banded ADMM
+(``qp/admm_structured.py``).  Also ported: the second-chance restarts and
+their multi-start family (``params["restart_inits"]``), the saturated-dual
+rescale (``rescale_duals_on_escalation``) and per-iteration callbacks with
+``STOPPED_BY_CALLBACK``.
 
 The JAX solver is written per problem and batched by ``vmap`` over its
 ``lax.while_loop``s, so a lane whose loop condition is false keeps its
@@ -14,10 +20,9 @@ every loop runs while any lane is live; each pass gathers the live lanes,
 steps them, and scatters the results back.  Lanes never mix, so a lane's
 result does not depend on its neighbours, exactly as under ``vmap``.
 
-Not ported yet: the gather-banded QP path (``structured=True`` with a
-layout that is not step-aligned), the IPM QP, callbacks, the saturated-dual
-rescale (``rescale_duals_on_escalation``) and the multi-start
-``params["restart_inits"]`` family.
+Nothing of the JAX ``make_solver`` is left out; like it, the solver has
+no wall clock (``SQPParams.max_time`` is read by the JAX package's
+reference solver only).
 """
 
 from __future__ import annotations
@@ -27,10 +32,14 @@ from typing import Any, NamedTuple
 import torch
 from torch.profiler import record_function
 
+from trajopt_tpu_torch.qp import banded as bd
 from trajopt_tpu_torch.qp import block_banded as bb
 from trajopt_tpu_torch.qp.admm import QPData, solve_qp
 from trajopt_tpu_torch.qp.admm_block import (BlockQP, prepare_qp_block,
                                              solve_qp_block_prepared)
+from trajopt_tpu_torch.qp.admm_structured import (StructuredQP,
+                                                  solve_qp_structured)
+from trajopt_tpu_torch.qp.ipm import IPMConfig, solve_qp_ipm
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.nlp import ConvexModel, Nlp, StructuredModel
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
@@ -204,24 +213,60 @@ def block_qp(nlp: Nlp, plan: bb.BlockPlan, model: StructuredModel,
         c=bb.to_block(row_c, plan, 0.0), lb=x, ub=x)
 
 
-def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
+def banded_qp(nlp: Nlp, starts, model: StructuredModel,
+              merit_coeffs: torch.Tensor, lb_box: torch.Tensor,
+              ub_box: torch.Tensor) -> StructuredQP:
+    """The gather-banded QP of a structured model (row windows at
+    ``starts``): constraint rows weighted by their group's merit
+    coefficient, penalty-cost rows by their weight, the trust box as the
+    hard box."""
+    row_c = torch.where(model.is_pen, model.pen_w,
+                        _structured_cnt_coeffs(nlp, merit_coeffs))
+    return StructuredQP(P=model.P, q=model.q,
+                        C=bd.make_banded(model.W, starts, nlp.n),
+                        l=model.l - model.b, u=model.u - model.b, c=row_c,
+                        lb=lb_box, ub=ub_box)
+
+
+def ipm_config(dtype: torch.dtype, eps_abs: float) -> IPMConfig:
+    """The IPM settings of the solver's IPM branch: float32 cannot reach
+    1e-8 KKT residuals, so it runs the barrier to its float32 floor (the
+    JAX solver's switch on the trace dtype)."""
+    if dtype == torch.float32:
+        return IPMConfig(eps=max(1e-5, eps_abs), eps_res=1e-3, reg=1e-7)
+    return IPMConfig(eps=min(1e-8, eps_abs))
+
+
+def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
                 structured: bool = False):
     """Build ``solve(x0 [B, n], lb [B, n], ub [B, n], params) -> SQPResult``
     for a fixed problem structure; ``params`` is a dict of per-lane
-    tensors with a leading ``B`` axis.  ``structured=False`` solves each
-    trust-region QP densely (``qp/admm.py``); ``structured=True`` on the
-    block-banded QP (``qp/admm_block.py``)."""
+    tensors with a leading ``B`` axis.  Its optional ``"restart_inits"``
+    entry, ``[B, R, ...]`` reshaped to ``[B, R, n]``, is a multi-start
+    family: the last R second-chance restarts (``max_restarts``) re-seed
+    the lane from its rows instead of restarting in place; it never
+    reaches the term functions.
+
+    ``structured=False`` solves each trust-region QP densely (ADMM, or the
+    IPM with ``qp_algorithm="ipm"``); ``structured=True`` on the
+    block-banded QP when the row windows are step-aligned and the problem
+    has a (T, D) layout, else on the gather-banded QP (every constraint and
+    penalty set needs ``banded_jac``; ADMM only).
+
+    ``callback(total_iter, x, cost_vals, cnt_viols, merit_coeffs,
+    box_size)`` is called at the top of each SQP pass with the live lanes
+    (in lane order; see ``callbacks.py``) and may return a per-lane stop
+    mask: a stopped lane keeps its state and ends with
+    ``STOPPED_BY_CALLBACK`` and one more iteration counted."""
     if sqp.qp_algorithm not in ("admm", "ipm"):
         raise ValueError(f"unknown qp_algorithm {sqp.qp_algorithm!r}")
-    if sqp.qp_algorithm == "ipm":
-        raise NotImplementedError("qp_algorithm='ipm' (the dense "
-                                  "interior-point QP) is not ported yet")
-    if sqp.rescale_duals_on_escalation:
-        raise NotImplementedError(
-            "rescale_duals_on_escalation is not ported yet")
+    if sqp.qp_algorithm == "ipm" and structured:
+        raise ValueError("qp_algorithm='ipm' supports the dense path only "
+                         "(the banded/block streams are ADMM-specific)")
     n = nlp.n
     n_cnt = nlp_mod.num_cnt_groups(nlp)
     cfg = sqp.qp
+    plan = None
     if structured:
         if not nlp_mod.supports_structured(nlp):
             missing = [t.name for t in nlp_mod.structured_sets(nlp)
@@ -229,21 +274,19 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             raise ValueError(f"structured=True requires banded_jac on all "
                              f"constraint/penalty sets; missing on "
                              f"{missing}")
-        if nlp.block is None:
-            raise NotImplementedError("the gather-banded QP path (no (T, D) "
-                                      "block layout) is not ported")
         starts, band_w = nlp_mod.structured_band(nlp)
-        try:
-            plan = bb.make_plan(starts, band_w, nlp.block[0], nlp.block[1])
-        except ValueError as e:
-            raise NotImplementedError(
-                "the gather-banded QP path (row windows that are not "
-                "step-aligned) is not ported") from e
-        m_blk = plan.m_blk
-        m_qp = m_blk + n
+        if nlp.block is not None:
+            try:
+                plan = bb.make_plan(starts, band_w, nlp.block[0],
+                                    nlp.block[1])
+            except ValueError:
+                plan = None          # not step-aligned: gather-banded
+        m_rows = plan.m_blk if plan is not None else int(starts.shape[0])
+        m_qp = m_rows + n
     else:
         m_qp = num_qp_rows(nlp)
-    ns_refresh = structured and cfg.ns_refresh
+    use_block = plan is not None
+    ns_refresh = use_block and cfg.ns_refresh
 
     def merit(cost_vals, cnt_viols, merit_coeffs):
         return cost_vals.sum(-1) + (merit_coeffs * cnt_viols).sum(-1)
@@ -254,6 +297,23 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
         return prepare_qp_block(block_qp(nlp, plan, model, merit_coeffs, x),
                                 cfg=cfg, minv0=minv0)
 
+    def escalation_row_ratio(old_coeffs, new_coeffs):
+        """Per-QP-row (dual rescale factor, old weight) [B, m_qp] for a
+        merit-coefficient change, in the carried y's row layout; the
+        factor is 1 on rows whose weight did not change (other groups,
+        penalty-cost rows, padded and box rows)."""
+        rows = _structured_cnt_coeffs if structured else _cnt_row_coeffs
+        old = rows(nlp, old_coeffs)
+        new = rows(nlp, new_coeffs)
+        r = torch.where(old > 0, new / torch.clamp_min(old, 1e-30),
+                        torch.ones_like(old))
+        if use_block:
+            r = bb.to_block(r, plan, 1.0)
+            old = bb.to_block(old, plan, 0.0)
+        pad = m_qp - r.shape[1]
+        return (torch.cat([r, r.new_ones(r.shape[0], pad)], -1),
+                torch.cat([old, old.new_zeros(old.shape[0], pad)], -1))
+
     def trust_body(ts: _TrustState, ctx) -> _TrustState:
         x_state, merit_coeffs, old_merit, model, prep, params, lb, ub = ctx
         dtype = x_state.dtype
@@ -261,11 +321,21 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
         lb_box = torch.maximum(lb, x_state - ts.box_size[:, None])
         ub_box = torch.minimum(ub, x_state + ts.box_size[:, None])
         with record_function("sqp.qp"):
-            if structured:
+            if use_block:
                 res = solve_qp_block_prepared(
-                    prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_blk],
-                    zb0=ts.z[:, m_blk:], yc0=ts.y[:, :m_blk],
-                    yb0=ts.y[:, m_blk:], cfg=cfg)
+                    prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_rows],
+                    zb0=ts.z[:, m_rows:], yc0=ts.y[:, :m_rows],
+                    yb0=ts.y[:, m_rows:], cfg=cfg)
+            elif structured:
+                res = solve_qp_structured(
+                    banded_qp(nlp, starts, model, merit_coeffs, lb_box,
+                              ub_box),
+                    ts.x, zc0=ts.z[:, :m_rows], zb0=ts.z[:, m_rows:],
+                    yc0=ts.y[:, :m_rows], yb0=ts.y[:, m_rows:], cfg=cfg)
+            elif sqp.qp_algorithm == "ipm":
+                res = solve_qp_ipm(build_qp(nlp, model, merit_coeffs, lb_box,
+                                            ub_box), ts.x,
+                                   cfg=ipm_config(dtype, cfg.eps_abs))
             else:
                 res = solve_qp(build_qp(nlp, model, merit_coeffs, lb_box,
                                         ub_box), ts.x, z0=ts.z, y0=ts.y,
@@ -358,7 +428,8 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
                 return ts
             ts = _put(ts, idx, trust_body(_take(ts, idx), _take(ctx, idx)))
 
-    def sqp_step(state: _State, params, lb, ub, jac_cache) -> _State:
+    def sqp_step(state: _State, params, lb, ub, jac_cache,
+                 r_inits) -> _State:
         with record_function("sqp.convexify"):
             if structured:
                 model = nlp_mod.convexify_structured(nlp, state.x, params,
@@ -366,7 +437,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             else:
                 model = nlp_mod.convexify(nlp, state.x, params, jac_cache)
         prep, new_minv = None, state.minv
-        if structured:
+        if use_block:
             with record_function("qp.prepare"):
                 prep = block_prepare(model, state.merit_coeffs, state.x,
                                      minv0=state.minv if ns_refresh
@@ -420,6 +491,48 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
         new_box = torch.where(pen_escalate, box_reset, ts.box_size)
         new_box = torch.where(restart, init_box, new_box)
 
+        # Dual warm-start rescale on a coefficient change: only saturated
+        # rows (|y| at their old weight, i.e. still violated) scale with
+        # it; active-but-satisfied rows have interior duals that do not.
+        new_y = ts.y
+        if sqp.rescale_duals_on_escalation and n_cnt > 0:
+            ratio, c_old = escalation_row_ratio(state.merit_coeffs,
+                                                new_coeffs)
+            saturated = torch.abs(ts.y) >= 0.9 * c_old
+            ratio = torch.where(saturated & (c_old > 0), ratio,
+                                torch.ones_like(ratio))
+            new_y = torch.where((pen_escalate | restart)[:, None],
+                                ts.y * ratio, ts.y)
+
+        # Multi-start restart: the last R restarts re-seed x from the
+        # lane's family (earlier ones stay in place).  A re-seeded lane
+        # gets the box-clipped row, fresh exact evaluations (counted as
+        # one, as in JAX) and zero duals; the carried KKT inverse is left
+        # to the next step's Newton-Schulz refresh, and no best iterate
+        # is kept.
+        new_x, new_z = ts.x, ts.z
+        new_cost_vals, new_cnt_viols = ts.cost_vals, ts.cnt_viols
+        n_fev = ts.n_func_evals
+        if r_inits is not None:
+            n_family = r_inits.shape[1]
+            j0 = max(0, sqp.max_restarts - n_family)
+            use_alt = restart & (state.restarts_used >= j0)
+            alt_idx = torch.nonzero(use_alt).squeeze(1)
+            if alt_idx.numel():
+                k = torch.clamp(state.restarts_used[alt_idx] - j0, 0,
+                                n_family - 1).long()
+                alt = torch.minimum(torch.maximum(r_inits[alt_idx, k],
+                                                  lb[alt_idx]), ub[alt_idx])
+                p_alt = _take(params, alt_idx)
+                new_x = new_x.index_copy(0, alt_idx, alt)
+                new_cost_vals = new_cost_vals.index_copy(
+                    0, alt_idx, nlp_mod.eval_exact_costs(nlp, alt, p_alt))
+                new_cnt_viols = new_cnt_viols.index_copy(
+                    0, alt_idx, nlp_mod.eval_exact_cnt_viols(nlp, alt, p_alt))
+                new_z = new_z.index_fill(0, alt_idx, 0.0)
+                new_y = new_y.index_fill(0, alt_idx, 0.0)
+                n_fev = n_fev + use_alt.to(n_fev.dtype)
+
         # Iteration limit exits the whole solve (optimizers.cpp:922-934).
         iter_exit = (~conv) & (~qp_failed) & hit_iter_limit
 
@@ -438,7 +551,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             status)
         zero = torch.zeros_like(state.merit_increases)
         return _State(
-            x=ts.x, cost_vals=ts.cost_vals, cnt_viols=ts.cnt_viols,
+            x=new_x, cost_vals=new_cost_vals, cnt_viols=new_cnt_viols,
             merit_coeffs=new_coeffs, box_size=new_box.to(dtype),
             merit_increases=torch.where(
                 restart, zero,
@@ -448,17 +561,38 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             restarts_used=state.restarts_used + restart.to(torch.int32),
             total_iter=state.total_iter + 1,
             status=status,
-            n_qp_solves=ts.n_qp_solves, n_func_evals=ts.n_func_evals,
-            z=ts.z, y=ts.y, minv=new_minv)
+            n_qp_solves=ts.n_qp_solves, n_func_evals=n_fev,
+            z=new_z, y=new_y, minv=new_minv)
+
+    def sqp_pass(state: _State, lane) -> _State:
+        """One SQP iteration of the live lanes ``state``: the callback
+        first (the reference checks its callbacks at the top of the
+        iteration), then the step for every lane it did not stop."""
+        if callback is None:
+            return sqp_step(state, *lane)
+        stop = callback(state.total_iter, state.x, state.cost_vals,
+                        state.cnt_viols, state.merit_coeffs, state.box_size)
+        if stop is None:
+            return sqp_step(state, *lane)
+        stop = torch.as_tensor(stop, dtype=torch.bool,
+                               device=state.x.device).reshape(-1)
+        new = state._replace(
+            status=torch.where(stop, torch.full_like(
+                state.status, SQPStatus.STOPPED_BY_CALLBACK), state.status),
+            total_iter=state.total_iter + stop.to(torch.int32))
+        go, idx = _live(~stop)
+        if not go:
+            return new
+        return _put(new, idx, sqp_step(_take(state, idx), *_take(lane, idx)))
 
     def solve(x0: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
               params: Any) -> SQPResult:
         params = dict(params or {})
-        if params.get("restart_inits") is not None:
-            raise NotImplementedError(
-                "params['restart_inits'] (multi-start restart family) is "
-                "not ported yet")
         B, dtype, dev = x0.shape[0], x0.dtype, x0.device
+        r_inits = params.pop("restart_inits", None)
+        if r_inits is not None:
+            r_inits = torch.as_tensor(r_inits, dtype=dtype,
+                                      device=dev).reshape(B, -1, n)
         # getClosestFeasiblePoint (modeling.cpp:260): box-only projection.
         x0 = torch.minimum(torch.maximum(x0, lb), ub)
         jac_cache = nlp_mod.linear_jacobians(nlp, x0, params)
@@ -486,13 +620,13 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(),
             n_func_evals=ints(1),
             z=x0.new_zeros(B, m_qp), y=x0.new_zeros(B, m_qp),
             minv=minv)
-        lane = (params, lb, ub, jac_cache)
+        lane = (params, lb, ub, jac_cache, r_inits)
         while True:
             anyone, idx = _live(state.status == SQPStatus.RUNNING)
             if not anyone:
                 break
             state = _put(state, idx,
-                         sqp_step(_take(state, idx), *_take(lane, idx)))
+                         sqp_pass(_take(state, idx), _take(lane, idx)))
         return SQPResult(
             x=state.x, status=state.status, cost_vals=state.cost_vals,
             cnt_viols=state.cnt_viols, total_cost=state.cost_vals.sum(-1),
