@@ -44,13 +44,25 @@ Phases, each of which must pass:
 9. the hard mix again with ``max_restarts=2`` and the multi-start family
    ``pr2ish_restart_family(goals, 30, rows=1)`` as
    ``params["restart_inits"]``: counts, re-seeded lanes and the block
-   kernel's launches.
+   kernel's launches;
+10. the JSON front end on arm7: (a) the port's ``arm_table.json`` through
+   ``load_problem_file`` and ``JsonProblem.solve()`` with its CSV logs,
+   converged and free under ``check_trajectory``; (b) the Cartesian-reach
+   document (:func:`reach_document`, 30 steps, ``cart_pose`` and
+   ``lvs_discrete``, the documents' default settings) on B = 128 lanes
+   through ``jp.prob.make_solve(jp.sqp)``: per-lane status, pose error and
+   ``check_trajectory`` (20 sub-states a gap, margin 0), verified lanes,
+   rate, the dense kernel's launches and a profiled repeat; (c) the dense
+   kernel (a cluster of 5 at n 210, m 888) on that path's first QP against
+   its plain version, its time, bound and resident clusters; (d) three MPC
+   cycles of the arm7 workload (B = 128, goal +0.01 rad a cycle).
 
 Phase 5 also holds, card (float32) against CPU: a borderline-goal pr2ish
 solve that escalates its penalties, with and without the saturated-dual
 rescale, and an arm7 solve on the IPM QP (both against float32), the IPM
 on the arm7 path's first QP and the gather-banded ADMM on the pr2ish
-first QP's rows (both against float64).
+first QP's rows (both against float64), and the JSON references of
+:func:`hold_json_references`.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -66,21 +78,33 @@ from __future__ import annotations
 
 import bisect
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
+import resource
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
+from trajopt_tpu_torch.collision.check import check_trajectory
+from trajopt_tpu_torch.kinematics.transforms import transform_error
+from trajopt_tpu_torch.models.benchmarks import (ARM7_GOAL, ARM7_HOME,
+                                                 arm_table_batch,
                                                  arm_table_problem,
                                                  pr2ish_restart_family,
                                                  pr2ish_table_batch,
                                                  pr2ish_table_problem,
                                                  swept_verify)
+from trajopt_tpu_torch.models.robots import arm7, arm7_scene
+from trajopt_tpu_torch.problem.json_io import (Environment,
+                                               construct_problem,
+                                               load_problem_file)
+from trajopt_tpu_torch.problem.mpc import make_mpc_step
 from trajopt_tpu_torch.qp import admm as dense
 from trajopt_tpu_torch.qp import block_banded as bb
 from trajopt_tpu_torch.qp import fused_block as fb
@@ -95,7 +119,8 @@ from trajopt_tpu_torch.qp.ipm import solve_qp_ipm
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
 from trajopt_tpu_torch.sqp.solver import (banded_qp, block_qp, build_qp,
-                                          ipm_config, make_solver)
+                                          ipm_config, make_solver,
+                                          num_qp_rows)
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -148,6 +173,75 @@ ITER_EDGES = (0, 3, 5, 9, 17, 33)
 # path.  Most borderline seeds do not (a 3e-6 change moves an escalation
 # or a restart).
 HARD_SMALL_SEED = 37
+
+
+ARM_TABLE_JSON = (Path(__file__).resolve().parent / "trajopt_tpu_torch"
+                  / "data" / "config" / "arm_table.json")
+# The arm7 Cartesian-reach document of phase 10 at full width: 30 steps;
+# its LVS count (2 sub-segments, 3 sub-points a gap, from the init's
+# largest gap) makes 28 gaps x 3 x 8 pairs = 672 collision rows, plus 6
+# pose and 210 box rows.
+REACH_STEPS, REACH_B = 30, 128
+
+
+def _wxyz(R: np.ndarray) -> list[float]:
+    """Unit quaternion (w, x, y, z) of a rotation matrix."""
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    x = np.copysign(np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2]))
+                    / 2, R[2, 1] - R[1, 2])
+    y = np.copysign(np.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2]))
+                    / 2, R[0, 2] - R[2, 0])
+    z = np.copysign(np.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2]))
+                    / 2, R[1, 0] - R[0, 1])
+    return [float(v) for v in (w, x, y, z)]
+
+
+def reach_pose() -> tuple[np.ndarray, np.ndarray]:
+    """(R, p) of ``tool0`` at ARM7_GOAL: the port's float64 FK."""
+    tree = arm7()
+    R, p = tree.fk(torch.as_tensor(ARM7_GOAL, dtype=torch.float64))
+    i = tree.link_id("tool0")
+    return R[i].numpy(), p[i].numpy()
+
+
+def reach_document(n_steps: int) -> dict:
+    """The arm7 Cartesian-reach problem document: joint_vel smoothing
+    (coeffs 5), ``tool0`` at the FK pose of ARM7_GOAL at the last step
+    (cart_pose), lvs_discrete collision constraints (dist_pen 0.025,
+    coeffs 20, from step 1), start pinned, a straight-line init to
+    ARM7_GOAL, and no opt_info (the documents' default settings)."""
+    R, p = reach_pose()
+    return {
+        "basic_info": {"n_steps": n_steps, "manip": "arm7",
+                       "fixed_timesteps": [0]},
+        "costs": [{"type": "joint_vel", "name": "smooth",
+                   "params": {"coeffs": [5] * 7}}],
+        "constraints": [
+            {"type": "cart_pose", "name": "reach",
+             "params": {"source_frame": "tool0", "timestep": n_steps - 1,
+                        "xyz": [float(v) for v in p], "wxyz": _wxyz(R)}},
+            {"type": "collision", "name": "no_collision",
+             "params": {"evaluator_type": 2, "dist_pen": 0.025,
+                        "coeffs": 20, "first_step": 1}}],
+        "init_info": {"type": "joint_interpolated",
+                      "endpoint": [float(v) for v in ARM7_GOAL]},
+        "opt_info": {},
+    }
+
+
+def arm7_env() -> Environment:
+    return Environment(arm7(), arm7_scene(), ARM7_HOME)
+
+
+def pose_error(tree, traj: torch.Tensor, step: int) -> torch.Tensor:
+    """[B] norm of the ``tool0`` pose error against :func:`reach_pose` at
+    ``step`` of ``traj [B, T, 7]``."""
+    R_t, p_t = (torch.as_tensor(v, dtype=traj.dtype, device=traj.device)
+                for v in reach_pose())
+    R, p = tree.fk(traj[:, step])
+    i = tree.link_id("tool0")
+    return torch.linalg.vector_norm(
+        transform_error(R_t, p_t, R[:, i], p[:, i]), dim=-1)
 
 
 def flagship_params() -> SQPParams:
@@ -639,6 +733,31 @@ def small_solve(path: str, dev, perturb: int | None = None):
                               res.x, res.merit_coeffs.amax(-1))]
 
 
+def small_json_solve(path: str, dev, perturb: int | None = None,
+                     dtype=torch.float32):
+    """A solve of a problem document on ``dev`` (float32 unless ``dtype``
+    says otherwise), as :func:`small_solve`: ``"arm_table.json"`` (the port's copy, 10 steps,
+    its own init, 1 lane) or ``"reach"`` (:func:`reach_document` at 10
+    steps, 3 lanes with straight-line inits to ``arm7_goals(1, 3)``), with
+    the document's settings.  Returns (status, SQP iterations, QP solves,
+    x, largest merit coefficient) on the CPU."""
+    if path == "arm_table.json":
+        jp = load_problem_file(str(ARM_TABLE_JSON), arm7_env(), device=dev)
+        x0 = jp.init_traj.reshape(1, -1).to(dev, dtype)
+    else:
+        jp = construct_problem(reach_document(10), arm7_env(), device=dev)
+        x0 = arm_table_batch(1, 3, 10, dtype=dtype,
+                             device=dev)[0].reshape(3, -1)
+    if perturb is not None:
+        noise = np.random.default_rng(perturb).uniform(
+            -1e-6, 1e-6, (x0.shape[0], x0.shape[1] - 7))
+        x0 = torch.cat([x0[:, :7], x0[:, 7:] + torch.as_tensor(
+            noise, dtype=x0.dtype, device=dev)], 1)
+    res = make_solver(jp.prob.build(), jp.sqp)(x0, *jp.prob.bounds(x0), {})
+    return [t.cpu() for t in (res.status, res.n_iter, res.n_qp_solves,
+                              res.x, res.merit_coeffs.amax(-1))]
+
+
 def first_structured_qp(n_steps: int, lanes: int, seed: int, dev):
     """The pr2ish first QP's rows (LVS 2, initial merit coefficients, trust
     box 0.1 around the straight-line inits) as the gather-banded QP the
@@ -741,6 +860,8 @@ def phase_small_reference():
            f"3 lanes, m {sqp_.C.m}, {cfg.max_iter} iterations)", got.x,
            ref.x)
 
+    hold_json_references()
+
     for path, counter in (("pr2ish", fb.COUNTER), ("hard", fb.COUNTER),
                           ("hard rescale", fb.COUNTER), ("arm7", fd.COUNTER),
                           ("arm7 ipm", None)):
@@ -777,6 +898,93 @@ def phase_small_reference():
         if not bool((dx <= tol).all()):
             raise SystemExit(f"small {path} solve: card and CPU x differ by "
                              f"{dx.tolist()}")
+
+
+@contextlib.contextmanager
+def plain_dense_chunk():
+    """Within the block, ``fused_dense.chunk`` runs its plain version on
+    any device (and counts no launch): the float64 references on the card,
+    which the kernel (float32 only) cannot run."""
+    def plain(*args, active=None, **kw):
+        out = fd.chunk_plain(*args, **kw)
+        if active is None:
+            return out
+        keep = active[:, None]
+        return (*(torch.where(keep, new, old)
+                  for new, old in zip(out[:3], args[7:])),
+                torch.where(keep, out[3], torch.nan))
+
+    saved, fd.chunk = fd.chunk, plain
+    try:
+        yield
+    finally:
+        fd.chunk = saved
+
+
+def hold_json_references():
+    """The JSON front end's small references, card against CPU: the port's
+    arm_table.json (10 steps, 1 lane) and the reach document at 10 steps
+    on 3 lanes, each with the document's settings.
+
+    In float64 (the dense chunk's plain version on the card) the card
+    repeats the CPU's solve: equal status and counts, x within 1e-6.  In
+    float32 the document's QP settings (eps 1e-8, which float32 never
+    reaches, so every QP runs its 1500 iterations) do not determine the
+    counts: under 1e-6 changes of the inits the CPU's own float32 solves
+    of arm_table.json take 6/9, 3/3 and 5/5 SQP iterations / QP solves,
+    and the JAX package's float32 solves of it 5/5, 5/6, 3/3 and 6/9.  So
+    the card (kernel) must converge the same lanes as the CPU (plain
+    version) with counts inside the range the CPU takes over three such
+    changes, and x within 4x the CPU's own spread (at least SOLVE_XTOL)."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for path in ("arm_table.json", "reach"):
+        with plain_dense_chunk():
+            g64 = small_json_solve(path, cuda, dtype=torch.float64)
+        c64 = small_json_solve(path, cpu, dtype=torch.float64)
+        dx64 = float((g64[3] - c64[3]).abs().max())
+        names = ("status", "SQP iterations", "QP solves")
+        print(f"small {path} (float64, plain chunk on the card): card vs "
+              f"CPU " + ", ".join(f"{n} {g.tolist()} vs {c.tolist()}"
+                                  for n, g, c in zip(names, g64, c64))
+              + f"; max |dx| {dx64:.3e}, tolerance 1e-6")
+        if not (all(torch.equal(g, c) for g, c in zip(g64[:3], c64[:3]))
+                and dx64 <= 1e-6):
+            raise SystemExit(f"small {path} float64: card and CPU differ")
+
+        fd.COUNTER.reset()
+        gpu = small_json_solve(path, cuda)
+        if fd.COUNTER.launches == 0:
+            raise SystemExit(f"small {path} solve did not launch the "
+                             f"dense kernel")
+        cpu_res = small_json_solve(path, cpu)
+        runs = [cpu_res] + [small_json_solve(path, cpu, perturb=k)
+                            for k in range(3)]
+        spread = torch.stack([(r[3] - cpu_res[3]).abs().amax(-1)
+                              for r in runs[1:]]).amax(0)
+        tol = torch.clamp_min(CHUNK_NOISE * spread, SOLVE_XTOL)
+        dx = (gpu[3] - cpu_res[3]).abs().amax(-1)
+        lo = [torch.stack([r[k] for r in runs]).amin(0) for k in (1, 2)]
+        hi = [torch.stack([r[k] for r in runs]).amax(0) for k in (1, 2)]
+        print(f"small {path} (float32): card vs CPU " + ", ".join(
+            f"{n} {g.tolist()} vs {c.tolist()}"
+            for n, g, c in zip(names, gpu, cpu_res))
+            + f"; CPU under 1e-6 changes: SQP iterations "
+            f"{[r[1].tolist() for r in runs[1:]]}, QP solves "
+            f"{[r[2].tolist() for r in runs[1:]]}; max |dx| per lane "
+            f"{[f'{v:.3e}' for v in dx.tolist()]}, tolerance "
+            f"{[f'{v:.1e}' for v in tol.tolist()]}; {fd.COUNTER.launches} "
+            f"dense kernel launches")
+        if not torch.equal(gpu[0], cpu_res[0]):
+            raise SystemExit(f"small {path} float32: statuses differ")
+        for k, n in ((1, "SQP iterations"), (2, "QP solves")):
+            if not bool(((gpu[k] >= lo[k - 1]) & (gpu[k] <= hi[k - 1])).all()):
+                raise SystemExit(f"small {path} float32: card {n} outside "
+                                 f"the CPU's range")
+        # x is held where the card took the CPU's path (equal counts)
+        same = (gpu[1] == cpu_res[1]) & (gpu[2] == cpu_res[2])
+        if not bool((dx[same] <= tol[same]).all()):
+            raise SystemExit(f"small {path} float32: card and CPU x differ "
+                             f"by {dx.tolist()}")
 
 
 # The solver's profiler ranges (torch.profiler.record_function), one per
@@ -978,14 +1186,22 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
         end = time.perf_counter()
         print(f"{label}: pass-timed repeat {time.time() - t0:.3f} s")
         print_passes(label, passes, end)
-    if not profile:
-        return launches
+    if profile:
+        profile_solve(label, lambda: solve(inits, {"goal": goals}), kernel,
+                      launches)
+    return launches
 
+
+def profile_solve(label: str, run, kernel: str, launches: int) -> None:
+    """A profiled repeat of ``run()`` (one solve): the device's idle share,
+    the layer split, the top kernels and the in-path time of the chunk
+    kernel ``kernel`` beside its ``launches`` counted in the measured
+    solve."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.time()
-        solve(inits, {"goal": goals})
+        run()
         torch.cuda.synchronize()
         pwall = time.time() - t0
     t0 = time.time()
@@ -1005,7 +1221,6 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
               f"({ms_k / max(n_k, 1):.4f} ms each)")
         print(f"{label}: top device time by kernel: {trace.top()}")
     print(f"{label}: reading the profile took {time.time() - t0:.1f} s")
-    return launches
 
 
 def phase_flagship(smi: str) -> int:
@@ -1098,6 +1313,161 @@ def phase_family(smi: str) -> int:
     return launches
 
 
+def json_first_qp(jp, inits: torch.Tensor):
+    """The reach document's first QP on the lanes ``inits [B, T, 7]``:
+    convexified at the inits with the initial merit coefficients, the trust
+    box the initial size around x.  Returns (QPData, x)."""
+    nlp = jp.prob.build()
+    x = inits.reshape(inits.shape[0], -1)
+    lb, ub = jp.prob.bounds(x)
+    model = nlp_mod.convexify(nlp, x, {}, nlp_mod.linear_jacobians(nlp, x,
+                                                                   {}))
+    coeffs = x.new_full((x.shape[0], nlp_mod.num_cnt_groups(nlp)),
+                        jp.sqp.initial_merit_error_coeff)
+    box = jp.sqp.initial_trust_box_size
+    return build_qp(nlp, model, coeffs, torch.maximum(lb, x - box),
+                    torch.minimum(ub, x + box)), x
+
+
+def phase_json(smi: str) -> dict:
+    """Phase 10: the JSON front end on arm7 (see the module doc)."""
+    env = arm7_env()
+    tree, scene = env.tree, env.scene
+
+    # (a) examples/plan_arm.py's flow on the port's arm_table.json
+    jp = load_problem_file(str(ARM_TABLE_JSON), env)
+    with tempfile.TemporaryDirectory() as tmp:
+        jp.log_results, jp.log_dir = True, tmp
+        fd.COUNTER.reset()
+        t0 = time.time()
+        res = jp.solve()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        logs = {f: Path(tmp, f).read_text().splitlines()
+                for f in ("trajopt_solver.log", "trajopt_vars.log")}
+    ok, dmin = check_trajectory(scene, res.x.reshape(jp.prob.n_steps, 7),
+                                substeps=4)
+    status = int(res.status[0])
+    print(f"json arm_table.json: status {SQPStatus.NAMES[status]}, "
+          f"iterations {int(res.n_iter[0])}, qp solves "
+          f"{int(res.n_qp_solves[0])}; independent collision check: "
+          f"free={ok} min_clearance={dmin:.4f}; {wall:.2f} s, "
+          f"{fd.COUNTER.launches} dense kernel launches; logs: solver "
+          f"{len(logs['trajopt_solver.log'])} lines, vars "
+          f"{len(logs['trajopt_vars.log'])} lines")
+    if status != SQPStatus.CONVERGED or not ok or fd.COUNTER.launches == 0:
+        raise SystemExit("json arm_table.json: not converged, not free or "
+                         "no kernel launch")
+    if len(logs["trajopt_solver.log"]) != int(res.n_iter[0]) + 1 or \
+            len(logs["trajopt_vars.log"]) != int(res.n_iter[0]):
+        raise SystemExit("json arm_table.json: the CSV logs miss rows")
+
+    # (b) the reach document at full width, B lanes of seeded inits
+    jp = construct_problem(reach_document(REACH_STEPS), env)
+    nlp = jp.prob.build()
+    n, m = nlp.n, num_qp_rows(nlp)
+    cs, smem = fd.cluster_plan(n, m)
+    print(f"json reach: {REACH_STEPS} steps, n {n}, m {m}, dense kernel "
+          f"in clusters of {cs} ({smem} B of shared memory per block); "
+          f"settings: qp eps {jp.sqp.qp.eps_abs:g}, max_iter "
+          f"{jp.sqp.qp.max_iter}, check_every {jp.sqp.qp.check_every}, "
+          f"adaptive rho {jp.sqp.qp.adaptive_rho}")
+    solve = jp.prob.make_solve(jp.sqp)
+    t0 = time.time()
+    solve(arm_table_batch(0, REACH_B, REACH_STEPS)[0])
+    torch.cuda.synchronize()
+    print(f"json reach: warm-up solve {time.time() - t0:.2f} s")
+    inits, _ = arm_table_batch(1, REACH_B, REACH_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.COUNTER.reset()
+    t0 = time.time()
+    res = solve(inits)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fd.COUNTER.launches
+    if tuple(res.x.shape) != (REACH_B, n) or \
+            not bool(torch.isfinite(res.x).all()):
+        raise SystemExit("json reach: trajectories not finite or of the "
+                         "wrong shape")
+    traj = res.x.reshape(REACH_B, REACH_STEPS, 7)
+    perr = pose_error(tree, traj, REACH_STEPS - 1)
+    free, dmins = check_trajectory(scene, traj, margin=0.0, substeps=20)
+    conv = res.status == SQPStatus.CONVERGED
+    verified = conv & free
+    n_conv, n_ver = int(conv.sum()), int(verified.sum())
+    print(f"json reach: per-lane status "
+          + "".join(str(int(v)) for v in res.status.tolist()))
+    print(f"json reach: per-lane check_trajectory (substeps 20, margin 0) "
+          + "".join("." if v else "x" for v in free.tolist())
+          + f"; min clearance {float(dmins.min()):+.4f}")
+    print(f"json reach: pose error at step {REACH_STEPS - 1}: converged "
+          f"lanes max {float(perr[conv].max()) if n_conv else float('nan'):.2e}"
+          f", all lanes max {float(perr.max()):.2e}")
+    print(f"json reach: converged {n_conv}/{REACH_B}, converged and checked "
+          f"free {n_ver}/{REACH_B}, mean SQP iterations "
+          f"{float(res.n_iter.float().mean()):.2f}, mean QP solves "
+          f"{float(res.n_qp_solves.float().mean()):.2f}, statuses "
+          f"{torch.bincount(res.status.cpu().long(), minlength=5).tolist()}")
+    print(f"json reach: {wall:.3f} s for {REACH_B} lanes -> "
+          f"{n_ver / wall:.2f} verified solves/s on {smi}; dense kernel "
+          f"launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches <= 0:
+        raise SystemExit("json reach: the solve never launched the kernel")
+    if n_ver < ARM_MIN_VERIFIED:
+        raise SystemExit(f"json reach: only {n_ver}/{REACH_B} lanes "
+                         f"converged and checked free "
+                         f"(< {ARM_MIN_VERIFIED})")
+    profile_solve("json reach", lambda: solve(inits), "admm_dense_",
+                  launches)
+
+    # (c) the dense kernel on (b)'s first QP
+    cfg = jp.sqp.qp
+    qp, x0 = json_first_qp(jp, inits)
+    args = dense.chunk_operands(qp, x0, cfg)
+    kw = dict(sigma=cfg.sigma, alpha=cfg.alpha, n_iters=cfg.check_every)
+    _, err = hold_dense("dense json first QP", args, kw)
+    ms = cuda_ms(lambda: fd.chunk_cuda(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: fd.chunk_plain(*args, **kw), 5)
+    flops = fd.chunk_flops(args[1], kw["n_iters"])
+    nbytes = fd.chunk_bytes(args[1])
+    bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
+    clusters = fd.max_active_clusters(n, m)
+    print(f"dense chunk on the reach document's first QP, B={REACH_B}, "
+          f"n={n}, m={m}, {kw['n_iters']} iterations: clusters of {cs}, at "
+          f"most {clusters} resident (cudaOccupancyMaxActiveClusters) -> "
+          f"{REACH_B / clusters:.2f} waves; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e6:.1f} "
+          f"MB -> {t_bytes:.4f} ms)")
+
+    # (d) MPC: three cycles of the arm7 workload with a drifting goal
+    prob, _ = arm_table_problem(n_steps=ARM_STEPS)
+    step = make_mpc_step(prob, discrete_params(), reinit_goal_key="goal")
+    traj, goals = arm_table_batch(2, REACH_B, ARM_STEPS)
+    for cycle in range(3):
+        fd.COUNTER.reset()
+        t0 = time.time()
+        traj, res = step(traj, {"goal": goals + 0.01 * cycle})
+        torch.cuda.synchronize()
+        n_conv = int((res.status == SQPStatus.CONVERGED).sum())
+        print(f"mpc cycle {cycle}: converged {n_conv}/{REACH_B}, "
+              f"{time.time() - t0:.2f} s, mean SQP iterations "
+              f"{float(res.n_iter.float().mean()):.2f}, "
+              f"{fd.COUNTER.launches} dense kernel launches")
+        if not bool(torch.isfinite(traj).all()) or \
+                tuple(traj.shape) != (REACH_B, ARM_STEPS, 7):
+            raise SystemExit(f"mpc cycle {cycle}: trajectories not finite "
+                             f"or of the wrong shape")
+        if n_conv < ARM_MIN_VERIFIED:
+            raise SystemExit(f"mpc cycle {cycle}: only {n_conv}/{REACH_B} "
+                             f"converged")
+    return {"json_launches": launches, "json_ms": ms,
+            "json_plain_ms": plain_ms, "json_bound_ms": bound_ms,
+            "json_bound_by": bound_by, "json_max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1108,7 +1478,9 @@ def main() -> int:
     def timed(name, fn, *args):
         t0 = time.time()
         out = fn(*args)
-        print(f"phase {name}: {time.time() - t0:.1f} s")
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        print(f"phase {name}: {time.time() - t0:.1f} s (peak host memory "
+              f"{rss:.1f} GiB)", flush=True)
         return out
 
     smi = timed("device", phase_device)
@@ -1120,6 +1492,9 @@ def main() -> int:
     dense_k["launches"] = timed("arm7", phase_arm7, smi)
     block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi)
     block["family_launches"] = timed("family", phase_family, smi)
+    dense_k.update(timed("json front end", phase_json, smi))
+    dense_k["max_abs_err"] = max(dense_k["max_abs_err"],
+                                 dense_k["json_max_abs_err"])
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [block, dense_k]}))
     print(json.dumps({"ok": True, "device": {

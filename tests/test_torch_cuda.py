@@ -176,11 +176,14 @@ def test_small_solve_on_the_card(cuda):
 
 # (B, n, m) by the kernel fused_dense.cluster_plan picks: ragged (n and m
 # not multiples of 32) in one block; arm7's dense QP shape in a cluster of
-# three; a cluster of seven; and a shape no cluster of eight holds, which
-# takes the streaming kernel (cs = 0).
-DENSE = {"ragged": (5, 37, 61), "arm7": (4, 210, 449), "cs7": (4, 300, 700),
+# three; the JSON front end's arm7 Cartesian-reach document (30 steps,
+# lvs_discrete) in a cluster of five; a cluster of seven; and a shape no
+# cluster of eight holds, which takes the streaming kernel (cs = 0).
+DENSE = {"ragged": (5, 37, 61), "arm7": (4, 210, 449),
+         "json_arm7": (4, 210, 888), "cs7": (4, 300, 700),
          "stream": (4, 400, 1200)}
-DENSE_CLUSTER = {"ragged": 1, "arm7": 3, "cs7": 7, "stream": 0}
+DENSE_CLUSTER = {"ragged": 1, "arm7": 3, "json_arm7": 5, "cs7": 7,
+                 "stream": 0}
 DKW = dict(sigma=1e-6, alpha=1.6, n_iters=40)
 
 
@@ -283,6 +286,59 @@ def test_small_dense_solve_on_the_card(cuda):
     assert fd.COUNTER.launches > before
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()
+
+
+def _plain_dense_chunk(*args, active=None, **kw):
+    """``fused_dense.chunk`` with the plain version on any device."""
+    out = fd.chunk_plain(*args, **kw)
+    if active is None:
+        return out
+    keep = active[:, None]
+    x, z, y = (torch.where(keep, new, old)
+               for new, old in zip(out[:3], args[7:]))
+    return x, z, y, torch.where(keep, out[3], torch.full_like(out[3],
+                                                              float("nan")))
+
+
+def test_json_solve_on_the_card(cuda, monkeypatch):
+    """The port's arm_table.json (10 steps) through the JSON front end on
+    the card: in float64 (the dense chunk's plain version on the card)
+    equal to the CPU's float64 solve (counts equal, x within 1e-6); in
+    float32 through ``JsonProblem.solve()``, launching the dense kernel and
+    converging."""
+    import os
+
+    from trajopt_tpu_torch.models.benchmarks import ARM7_HOME
+    from trajopt_tpu_torch.models.robots import arm7, arm7_scene
+    from trajopt_tpu_torch.problem.json_io import (Environment,
+                                                   load_problem_file)
+    from trajopt_tpu_torch.sqp.solver import make_solver
+
+    path = os.path.join(os.path.dirname(__file__), "..", "trajopt_tpu_torch",
+                        "data", "config", "arm_table.json")
+    env = Environment(arm7(), arm7_scene(), ARM7_HOME)
+
+    def solve64(dev):
+        jp = load_problem_file(path, env, device=dev)
+        x0 = jp.init_traj.reshape(1, -1).to(dev)
+        res = make_solver(jp.prob.build(), jp.sqp)(x0, *jp.prob.bounds(x0),
+                                                   {})
+        return res._replace(**{k: v.cpu() for k, v in res._asdict().items()})
+
+    with monkeypatch.context() as m:
+        m.setattr(fd, "chunk", _plain_dense_chunk)
+        card64 = solve64(cuda)
+    cpu64 = solve64("cpu")
+    for name in ("status", "n_iter", "n_qp_solves", "n_func_evals"):
+        assert torch.equal(getattr(card64, name), getattr(cpu64, name)), name
+    assert (card64.x - cpu64.x).abs().max() <= 1e-6
+
+    jp = load_problem_file(path, env)
+    before = fd.COUNTER.launches
+    res = jp.solve()
+    assert fd.COUNTER.launches > before
+    assert res.x.device.type == "cuda" and res.x.dtype == torch.float32
+    assert int(res.status[0]) == SQPStatus.CONVERGED
 
 
 def _held(card, plain, ref, floor=1e-3):

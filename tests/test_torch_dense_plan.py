@@ -40,6 +40,17 @@ def test_arm7_dense_qp_takes_a_cluster_of_three():
                         + 2 * 3 * 210)
 
 
+def test_json_arm7_document_takes_a_cluster_of_five():
+    """The JSON front end's arm7 Cartesian-reach document (30 steps,
+    lvs_discrete with 3 sub-points, 8 pairs): n = 210, m = 672 collision +
+    6 pose + 210 box = 888 rows.  A (745,920 B) and Minv (176,400 B) fit in
+    no fewer than five blocks: 178 rows of A and 42 of Minv a rank."""
+    assert fd.cluster_plan(210, 888) == (5, 216_864)
+    assert 216_864 == 4 * (8 + (178 + 42 + 16 + 3) * 212 + 8 * 180
+                           + 2 * 5 * 210)
+    assert fd.cluster_plan(210, 888)[1] <= kernels.SMEM_LIMIT
+
+
 def test_card_tests_ragged_shape_takes_one_block():
     """n = 37, m = 61 (tests/test_torch_cuda.py): everything fits one
     block."""

@@ -243,13 +243,18 @@ def test_arm7_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 def test_dense_path_options_that_wait_raise():
     """The IPM runs on the dense path only (a ValueError elsewhere, as in
-    JAX); the lvs_discrete evaluator still waits."""
+    JAX).  The lvs_discrete evaluator is ported: it builds, one row per
+    (gap, sub-point, pair); an evaluator the port does not have raises,
+    naming the ones it has."""
     prob, _ = tbench.arm_table_problem(n_steps=4, device="cpu")
     _, params = _jax_params()
     ipm = dataclasses.replace(params, qp_algorithm="ipm")
     make_solver(prob.build(), ipm)
     with pytest.raises(ValueError, match="dense path"):
         make_solver(prob.build(), ipm, structured=True)
+    lvs, _ = tbench.arm_table_problem(n_steps=4, evaluator="lvs_discrete",
+                                      device="cpu")
+    assert lvs.build().term_sets[2].n_rows == 3 * 4 * 8
     with pytest.raises(ValueError, match="lvs_discrete"):
-        tbench.arm_table_problem(n_steps=4, evaluator="lvs_discrete",
+        tbench.arm_table_problem(n_steps=4, evaluator="continuous",
                                  device="cpu")

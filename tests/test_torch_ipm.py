@@ -167,3 +167,39 @@ def test_arm7_ipm_solve_matches_jax():
     np.testing.assert_array_equal(res.n_func_evals.numpy(),
                                   ref.n_func_evals)
     np.testing.assert_allclose(res.x.numpy(), ref.x, rtol=0, atol=1e-6)
+
+
+def test_float32_ipm_matches_jax_float32():
+    """The float32 IPM (the solver's float32 settings, ``ipm_config``) on
+    the arm7 path's first QP (10 steps, 8 lanes, float32 inputs) against
+    the JAX package's float32 IPM with the same settings: the same
+    converged lanes, and x of the converged lanes within 1e-3 of JAX's
+    (both stop at a complementarity gap of ~1e-5 to 1e-4, so float32 x is
+    determined to ~1e-4 of its magnitude here; measured 1.2e-4), and no
+    more than 4x JAX's own distance to the float64 IPM from it.  At the
+    full shape (30 steps, 128 lanes) the two converge 117 and 116 lanes of
+    128 on the CPU, 8 unconverged lanes in common: the float32 IPM's
+    shortfall is the reference's own."""
+    from trajopt_tpu.qp.ipm import IPMConfig as JaxIPMConfig
+    from trajopt_tpu_torch.sqp.solver import ipm_config
+    cs = _load("chip_smoke")
+    qp, x0 = cs.arm7_first_qp(10, 8, 0, torch.device("cpu"))
+    qp32, x32 = [t.float() for t in qp], x0.float()
+    eps = cs.discrete_params().qp.eps_abs
+    got = solve_qp_ipm(QPData(*qp32), x32, cfg=ipm_config(torch.float32, eps))
+    jcfg = JaxIPMConfig(eps=max(1e-5, eps), eps_res=1e-3, reg=1e-7)
+    assert ipm_config(torch.float32, eps) == IPMConfig(
+        **dataclasses.asdict(jcfg))
+    ref = jax.tree.map(np.asarray, jax.jit(jax.vmap(
+        lambda *a: jax_solve_qp_ipm(JaxQPData(*a[:-1]), a[-1], cfg=jcfg)))(
+        *(jnp.asarray(t.numpy()) for t in (*qp32, x32))))
+    assert ref.x.dtype == np.float32
+    r64 = solve_qp_ipm(QPData(*(t.double() for t in qp32)), x32.double(),
+                       cfg=ipm_config(torch.float64, eps))
+    np.testing.assert_array_equal(got.converged.numpy(), ref.converged)
+    ok = ref.converged
+    assert ok.sum() == 8
+    x_t, x_j = got.x.double().numpy()[ok], ref.x.astype(float)[ok]
+    np.testing.assert_allclose(x_t, x_j, rtol=0, atol=1e-3)
+    x64 = r64.x.numpy()[ok]
+    assert np.abs(x_t - x64).max() <= 4 * np.abs(x_j - x64).max()

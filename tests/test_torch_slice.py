@@ -297,13 +297,34 @@ def test_import_leaves_jax_out():
         "'trajopt_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 25, mods\n"
-        "new = {'callbacks', 'qp.ipm', 'qp.banded', 'qp.admm_structured'}\n"
+        "new = {'callbacks', 'qp.ipm', 'qp.banded', 'qp.admm_structured',\n"
+        "       'problem.json_io', 'problem.mpc', 'collision.check',\n"
+        "       'terms.cartesian', 'terms.time', 'terms.user',\n"
+        "       'kinematics.ik', 'utils.config', 'plotting'}\n"
         "assert {'trajopt_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'trajopt_tpu' or "
         "k.startswith('trajopt_tpu.'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_solver_imports_leave_matplotlib_and_yaml_out():
+    """The JSON front end and the solver import neither of their optional
+    dependencies: matplotlib (plots) and PyYAML (.yaml documents) load
+    only when a plot is drawn or a YAML file read."""
+    code = (
+        "import sys\n"
+        "import trajopt_tpu_torch.problem.json_io\n"
+        "import trajopt_tpu_torch.sqp.solver\n"
+        "import trajopt_tpu_torch.callbacks\n"
+        "import trajopt_tpu_torch.plotting\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('matplotlib', 'yaml'))\n"
+        "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -16,9 +16,10 @@ callback sees for that lane).  Each copies the live lanes to the host, so
 a solve with one of them syncs once more per pass; a solve without a
 callback does not.
 
-The matplotlib plotters of the JAX module (``JointStatePlotter``,
-``CollisionPlotter``, ``CartesianErrorPlotter``, ``ClearPlotter``) are not
-ported yet.
+The plotters (``JointStatePlotter``, ``CollisionPlotter``,
+``CartesianErrorPlotter``, ``ClearPlotter``; the reference's trajopt_sqp
+callback plotters) are host functions of one snapshot like the others;
+they import matplotlib (optional, Agg backend) only when they draw.
 """
 
 from __future__ import annotations
@@ -89,6 +90,114 @@ class WaitForInput:
 
     def __call__(self, snap: IterationSnapshot) -> bool:
         return input(f"[iter {snap.iteration}] {self.prompt}: ").strip() != "q"
+
+
+def _pyplot():
+    import matplotlib
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+    return plt
+
+
+class JointStatePlotter:
+    """Per-iteration joint-trajectory plot (joint_state_plotter.h): keeps
+    the iterate history and, with a ``prefix``, writes
+    ``<prefix><iteration>.png``."""
+
+    def __init__(self, n_steps: int, n_dof: int, prefix: str | None = None):
+        self.n_steps, self.n_dof = n_steps, n_dof
+        self.prefix = prefix
+        self.history: list[np.ndarray] = []
+
+    def clear(self) -> None:
+        self.history.clear()
+
+    def __call__(self, snap: IterationSnapshot) -> bool:
+        traj = snap.x.reshape(self.n_steps, -1)[:, :self.n_dof]
+        self.history.append(traj)
+        if self.prefix is not None:
+            plt = _pyplot()
+            fig, ax = plt.subplots()
+            for j in range(self.n_dof):
+                ax.plot(traj[:, j], label=f"j{j}")
+            ax.set_xlabel("timestep")
+            ax.set_ylabel("joint value")
+            ax.legend(fontsize=6)
+            fig.savefig(f"{self.prefix}{snap.iteration:03d}.png", dpi=60)
+            plt.close(fig)
+        return True
+
+
+class CollisionPlotter:
+    """Per-iteration clearance plot (collision_plotter.h): the minimum
+    signed distance per timestep from the scene's narrowphase (in float64
+    on the CPU, from the snapshot's numpy iterate)."""
+
+    def __init__(self, scene, n_steps: int, n_dof: int,
+                 prefix: str | None = None):
+        self.scene, self.n_steps, self.n_dof = scene, n_steps, n_dof
+        self.prefix = prefix
+        self.history: list[np.ndarray] = []
+
+    def clear(self) -> None:
+        self.history.clear()
+
+    def __call__(self, snap: IterationSnapshot) -> bool:
+        traj = torch.as_tensor(snap.x.reshape(self.n_steps, -1)[:, :self.n_dof],
+                               dtype=torch.float64)
+        with torch.no_grad():
+            d = self.scene.distances(self.scene.tree.fk(traj)).numpy()
+        min_d = d.min(axis=1)
+        self.history.append(min_d)
+        if self.prefix is not None:
+            plt = _pyplot()
+            fig, ax = plt.subplots()
+            ax.plot(min_d)
+            ax.axhline(0.0, color="r", ls="--")
+            ax.set_xlabel("timestep")
+            ax.set_ylabel("min signed distance")
+            fig.savefig(f"{self.prefix}{snap.iteration:03d}.png", dpi=60)
+            plt.close(fig)
+        return True
+
+
+class CartesianErrorPlotter:
+    """Per-iteration Cartesian error-norm trace
+    (cartesian_error_plotter.h); ``err_fn(x) -> error vector``."""
+
+    def __init__(self, err_fn: Callable[[np.ndarray], np.ndarray],
+                 path: str | None = None):
+        self.err_fn = err_fn
+        self.path = path
+        self.history: list[float] = []
+
+    def clear(self) -> None:
+        self.history.clear()
+
+    def __call__(self, snap: IterationSnapshot) -> bool:
+        self.history.append(float(np.linalg.norm(
+            np.asarray(self.err_fn(snap.x)))))
+        if self.path is not None:
+            plt = _pyplot()
+            fig, ax = plt.subplots()
+            ax.semilogy(self.history)
+            ax.set_xlabel("SQP iteration")
+            ax.set_ylabel("|cartesian error|")
+            fig.savefig(self.path, dpi=60)
+            plt.close(fig)
+        return True
+
+
+class ClearPlotter:
+    """Clears another plotter's accumulated state each iteration
+    (clear_plotter.h)."""
+
+    def __init__(self, plotter):
+        self.plotter = plotter
+
+    def __call__(self, snap: IterationSnapshot) -> bool:
+        self.plotter.clear()
+        return True
 
 
 def chain(*host_fns):

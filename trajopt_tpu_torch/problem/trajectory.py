@@ -149,3 +149,9 @@ def interpolated_init(start, end, n_steps: int, dt: float | None = None):
                        device=start.device)[:, None]
     traj = start[..., None, :] * (1.0 - w) + end[..., None, :] * w
     return _append_dt(traj, dt)
+
+
+def given_init(traj, dt: float | None = None):
+    """InitInfo::GIVEN_TRAJ: the caller's ``[..., n_steps, n_dof]``
+    trajectory as it is (plus the 1/dt column when ``dt`` is given)."""
+    return _append_dt(torch.as_tensor(traj), dt)

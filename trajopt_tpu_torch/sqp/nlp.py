@@ -8,10 +8,11 @@ leading ``B`` axis, residuals ``[B, n_rows]``.  Jacobians of affine terms
 come from ``torch.func.jacrev``; collision terms supply analytic banded
 Jacobians.
 
-Ported: ``Kind``, ``TermSet``, ``Nlp``, the residual/Jacobian helpers, the
-exact evaluations, the dense ``convexify`` / ``ConvexModel`` path the dense
-QP consumes and the structured (banded) path the block QP consumes.
-Generic (non least-squares) costs and ``_psd_project`` wait.
+Generic scalar costs (``COST_GENERIC_FULL`` / ``COST_GENERIC_DIAG``) take
+a PSD-projected second-order Taylor model: the full Hessian from
+``torch.func.hessian`` with its negative eigenvalues clamped
+(``_psd_project``, ``torch.linalg.eigh``), or the clamped diagonal of
+second directional derivatives.
 """
 
 from __future__ import annotations
@@ -48,6 +49,25 @@ GENERIC_KINDS = (Kind.COST_GENERIC_FULL, Kind.COST_GENERIC_DIAG)
 def as_like(v, like: torch.Tensor) -> torch.Tensor:
     """``v`` as a tensor on ``like``'s device and dtype."""
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+class Consts:
+    """A term's numpy constants as tensors on ``like``'s device, cached per
+    device and dtype: floating arrays in ``like``'s dtype, integer and
+    boolean arrays (indices, masks) in their own."""
+
+    def __init__(self, **arrays):
+        self._np = {k: np.asarray(v) for k, v in arrays.items()}
+        self._cache = {}
+
+    def get(self, name, like: torch.Tensor):
+        key = (name, like.device, like.dtype)
+        if key not in self._cache:
+            a = self._np[name]
+            self._cache[key] = torch.as_tensor(
+                a, dtype=like.dtype if a.dtype.kind == "f" else None,
+                device=like.device)
+        return self._cache[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +122,17 @@ class Nlp:
     @property
     def num_cnt_sets(self) -> int:
         return len(self.cnt_sets)
+
+
+def banded_to_dense(W: torch.Tensor, starts, n: int) -> torch.Tensor:
+    """Dense rows [B, rows, n] of banded rows ``W [B, rows, w]`` whose row
+    r covers columns ``starts[r] ... + w`` (columns past n dropped)."""
+    B, rows, w = W.shape
+    idx = np.asarray(starts)[:, None] + np.arange(w)
+    keep = torch.as_tensor(idx < n, dtype=W.dtype, device=W.device)
+    idx = torch.as_tensor(np.minimum(idx, n - 1), device=W.device)
+    return W.new_zeros(B, rows, n).scatter_add(
+        -1, idx.expand(B, rows, w), W * keep)
 
 
 def _weights(t: TermSet, params, like: torch.Tensor) -> torch.Tensor:
@@ -187,6 +218,40 @@ def _group_reduce(viol_rows: torch.Tensor, t: TermSet) -> torch.Tensor:
                          viol_rows)
 
 
+def _psd_project(H: torch.Tensor) -> torch.Tensor:
+    """Clamp negative eigenvalues of symmetric ``H [..., n, n]`` to zero
+    (CostFromFunc's full-Hessian path)."""
+    w, V = torch.linalg.eigh(H)
+    return (V * torch.clamp_min(w, 0.0)[..., None, :]) @ V.transpose(-1, -2)
+
+
+def _generic_taylor(t: TermSet, x, params):
+    """(value [B], gradient [B, n], PSD Hessian [B, n, n]) of a generic
+    scalar cost per lane: the full Hessian projected onto the PSD cone
+    (COST_GENERIC_FULL), or the clamped diagonal of second directional
+    derivatives by forward-over-forward products, with no [n, n] Hessian
+    formed (COST_GENERIC_DIAG)."""
+    def f(v, p):
+        return t.fn(v[None], {k: val[None] for k, val in p.items()}
+                    ).reshape(())
+
+    func = torch.func
+    val = func.vmap(f)(x, params)
+    g = func.vmap(func.grad(f))(x, params)
+    if t.kind is Kind.COST_GENERIC_FULL:
+        return val, g, _psd_project(func.vmap(func.hessian(f))(x, params))
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+
+    def d2(v, p, e):
+        def df(u):
+            return func.jvp(lambda w: f(w, p), (u,), (e,))[1]
+        return func.jvp(df, (v,), (e,))[1]
+
+    h = func.vmap(lambda v, p: func.vmap(lambda e: d2(v, p, e))(eye))(
+        x, params)
+    return val, g, torch.diag_embed(torch.clamp_min(h, 0.0))
+
+
 def _convexify_costs(nlp: Nlp, x, params, jac_cache, *, pen_rows: bool):
     """Quadratize the cost sets at x -> (P [B,n,n], q [B,n], c0 [B], and
     the affine cost rows as lists of A [B,rows,n], b and w [B,rows]).
@@ -202,8 +267,13 @@ def _convexify_costs(nlp: Nlp, x, params, jac_cache, *, pen_rows: bool):
         if (not pen_rows) and t.kind in PENALTY_COST_KINDS:
             continue
         if t.kind in GENERIC_KINDS:
-            raise NotImplementedError(
-                f"generic cost set {t.name!r}: not ported yet")
+            val, g, H = _generic_taylor(t, x, params)
+            w = _weights(t, params, x)[:, 0]
+            Hx = (H @ x[..., None])[..., 0]
+            P = P + w[:, None, None] * H
+            q = q + w[:, None] * (g - Hx)
+            c0 = c0 + w * (val - (g * x).sum(-1) + 0.5 * (x * Hx).sum(-1))
+            continue
         r, J = _residual_and_jac(t, x, params, jac_cache, index_of[id(t)])
         b = r - (J @ x[..., None])[..., 0]
         w = _weights(t, params, x)
@@ -307,10 +377,17 @@ def convexify(nlp: Nlp, x, params, jac_cache=None) -> ConvexModel:
 
 
 def eval_model_costs(nlp: Nlp, model: ConvexModel, x) -> torch.Tensor:
-    """Per-cost-set convex model values [B, n_cost_sets] at x."""
+    """Per-cost-set convex model values [B, n_cost_sets] at x, in cost-set
+    order.  Generic sets report 0: their value lives in the shared
+    quadratic (totals via :func:`model_cost_total`)."""
     a = (model.A_cost @ x[..., None])[..., 0] + model.b_cost
+    rows_of = {id(t): sl for t, sl in cost_row_structure(nlp)}
     vals = []
-    for t, sl in cost_row_structure(nlp):
+    for t in nlp.cost_sets:
+        if t.kind in GENERIC_KINDS:
+            vals.append(x.new_zeros(x.shape[0]))
+            continue
+        sl = rows_of[id(t)]
         w, rows = model.w_cost[:, sl], a[:, sl]
         if t.kind is Kind.COST_SQ:
             vals.append((w * rows * rows).sum(-1))
