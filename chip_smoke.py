@@ -56,6 +56,22 @@ Phases, each of which must pass:
    kernel (a cluster of 5 at n 210, m 888) on that path's first QP against
    its plain version, its time, bound and resident clusters; (d) three MPC
    cycles of the arm7 workload (B = 128, goal +0.01 rad a cycle).
+11. the rest of the collision world: (a) the flagship under
+   ``unify_narrowphase`` (``pr2ish_table_problem(..., unify_narrowphase=
+   True)``: all 91 pairs through the convex GJK + SAT kernel, B = 256,
+   block path) through the same checks as phase 6, verified with the
+   primitive scene's swept check, its distances held against the
+   primitive kernels' on the result (waypoints: within 5e-4 where the
+   primitive value is > -0.02; the LVS sub-segments reported), and the
+   profiled repeat's device time inside the convex narrowphase
+   (``collision.convex``) with its top kernels; (b) the unified scene's
+   ``distances_and_jac`` and ``swept_distances_and_jac`` on the card in
+   float64 against the CPU (and float32 beside the CPU's own float32
+   error); (c) small float32 solves on the dense path, card against CPU
+   with equal statuses: arm6 on its shelf, the mesh arm (hulls of binary
+   STL links written to a temporary directory, through
+   ``scene_from_urdf`` with an SRDF), arm7 against an SDF grid of its
+   table scene, and ``simple_collision_problem``.
 
 Phase 5 also holds, card (float32) against CPU: a borderline-goal pr2ish
 solve that escalates its penalties, with and without the saturated-dual
@@ -92,19 +108,29 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch.collision.check import check_trajectory
+from trajopt_tpu_torch.collision.geometry import point_box_sdf
+from trajopt_tpu_torch.collision.sdf_grid import bake_sdf
 from trajopt_tpu_torch.kinematics.transforms import transform_error
-from trajopt_tpu_torch.models.benchmarks import (ARM7_GOAL, ARM7_HOME,
+from trajopt_tpu_torch.models.benchmarks import (ARM7_GOAL,
+                                                 ARM7_GOAL_SCALE, ARM7_HOME,
+                                                 MESH_ARM_GOAL,
+                                                 MESH_ARM_HOME,
                                                  arm_table_batch,
                                                  arm_table_problem,
+                                                 mesh_arm_problem,
                                                  pr2ish_restart_family,
                                                  pr2ish_table_batch,
                                                  pr2ish_table_problem,
+                                                 simple_collision_problem,
                                                  swept_verify)
-from trajopt_tpu_torch.models.robots import arm7, arm7_scene
+from trajopt_tpu_torch.models.robots import (arm6, arm6_scene, arm7,
+                                             arm7_scene, write_mesh_arm)
 from trajopt_tpu_torch.problem.json_io import (Environment,
                                                construct_problem,
                                                load_problem_file)
 from trajopt_tpu_torch.problem.mpc import make_mpc_step
+from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
+                                                  interpolated_init)
 from trajopt_tpu_torch.qp import admm as dense
 from trajopt_tpu_torch.qp import block_banded as bb
 from trajopt_tpu_torch.qp import fused_block as fb
@@ -121,6 +147,8 @@ from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
 from trajopt_tpu_torch.sqp.solver import (banded_qp, block_qp, build_qp,
                                           ipm_config, make_solver,
                                           num_qp_rows)
+from trajopt_tpu_torch.terms.collision import collision_term
+from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -992,7 +1020,8 @@ def hold_json_references():
 # factorization; per SQP step on the block path, per QP inside "sqp.qp"
 # on the dense path), the QP solves, and the model and exact evaluations
 # of the trust-region test.
-LAYERS = ("sqp.convexify", "qp.prepare", "sqp.qp", "sqp.evaluate")
+LAYERS = ("sqp.convexify", "qp.prepare", "sqp.qp", "sqp.evaluate",
+          "collision.convex")
 
 
 class Trace:
@@ -1019,22 +1048,31 @@ class Trace:
             starts.setdefault(e.correlation_id(), e.start_ns())
         self.launch = [starts.get(c) for _, _, _, c in self.spans]
 
+    def inside(self, name: str) -> list[int]:
+        """Indices of the device spans launched inside range ``name``."""
+        rs = sorted(self.ranges[name])
+        begins = [a for a, _ in rs]
+        out = []
+        for k, t in enumerate(self.launch):
+            i = bisect.bisect_right(begins, t) - 1 if t is not None else -1
+            if i >= 0 and t <= rs[i][1]:
+                out.append(k)
+        return out
+
     def layer_split(self) -> str:
         """Host time (inclusive) of each of the solver's ranges and device
-        time of the spans launched inside it, summed over its calls."""
+        time and count of the spans launched inside it, summed over its
+        calls (ranges the run never entered left out)."""
         out = []
         for name, rs in self.ranges.items():
-            rs = sorted(rs)
-            begins = [a for a, _ in rs]
-            dev = 0
-            for (_, s, e, _), t in zip(self.spans, self.launch):
-                i = bisect.bisect_right(begins, t) - 1 if t is not None \
-                    else -1
-                if i >= 0 and t <= rs[i][1]:
-                    dev += e - s
+            if not rs:
+                continue
+            ks = self.inside(name)
+            dev = sum(self.spans[k][2] - self.spans[k][1] for k in ks)
             host = sum(b - a for a, b in rs)
             out.append(f"{name} host {host / 1e6:.1f} ms, device "
-                       f"{dev / 1e6:.1f} ms ({len(rs)} calls)")
+                       f"{dev / 1e6:.1f} ms, {len(ks)} device spans "
+                       f"({len(rs)} calls)")
         return "; ".join(out)
 
     def busy_share(self, wall_s: float) -> float | None:
@@ -1059,10 +1097,12 @@ class Trace:
         spans = [e - s for name, s, e, _ in self.spans if kernel in name]
         return len(spans), sum(spans) / 1e6
 
-    def top(self, k: int = 10) -> str:
-        """The ``k`` device spans with the most time, summed by name."""
+    def top(self, k: int = 10, among=None) -> str:
+        """The ``k`` device spans with the most time, summed by name (of
+        the spans indexed by ``among``, default all)."""
         tot = {}
-        for name, s, e, _ in self.spans:
+        for j in range(len(self.spans)) if among is None else among:
+            name, s, e, _ = self.spans[j]
             n, t = tot.get(name, (0, 0))
             tot[name] = (n + 1, t + e - s)
         rows = sorted(tot.items(), key=lambda kv: -kv[1][1])[:k]
@@ -1121,7 +1161,7 @@ def print_outcome(label: str, res, verified, n_hard: int) -> None:
 def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
                n_dof: int, counter, kernel: str, smi: str,
                min_verified: int | None, profile: bool = True,
-               n_hard: int = 0, timed_solve=None) -> int:
+               n_hard: int = 0, timed_solve=None, after=None) -> int:
     """A warm-up solve, then the measured solve of ``B`` seeded lanes with
     the kernel's launch count set to 0 just before and read just after;
     the independent swept check of every lane; with ``profile`` a
@@ -1130,7 +1170,8 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
     status and iteration histograms and the first ``n_hard`` lanes'
     counts; with ``timed_solve`` (the same solve made with a
     ``pass_timer`` callback, and its list) a repeat that prints the host
-    time of each SQP pass.
+    time of each SQP pass; with ``after`` a call ``after(res)`` on the
+    measured solve's result before the repeats.
     Fails below ``min_verified`` converged and swept-verified lanes or
     when the kernel never launched.  Returns the launch count."""
     inits, goals = batch(0, B, n_steps)
@@ -1177,6 +1218,8 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
     if min_verified is not None and n_ver < min_verified:
         raise SystemExit(f"{label}: only {n_ver}/{B} lanes converged and "
                          f"verified (< {min_verified})")
+    if after is not None:
+        after(res)
     if timed_solve is not None:
         tsolve, passes = timed_solve
         passes.clear()
@@ -1220,6 +1263,15 @@ def profile_solve(label: str, run, kernel: str, launches: int) -> None:
               f"counted, {n_k} traced, {ms_k:.3f} ms device time "
               f"({ms_k / max(n_k, 1):.4f} ms each)")
         print(f"{label}: top device time by kernel: {trace.top()}")
+        if trace.ranges["collision.convex"]:
+            ks = trace.inside("collision.convex")
+            dev = sum(trace.spans[k][2] - trace.spans[k][1] for k in ks)
+            total = sum(e - s for _, s, e, _ in trace.spans)
+            print(f"{label}: convex narrowphase (collision.convex): "
+                  f"{dev / 1e6:.1f} ms of {total / 1e6:.1f} ms device time "
+                  f"({100 * dev / max(total, 1):.2f} %), {len(ks)} device "
+                  f"spans in {len(trace.ranges['collision.convex'])} "
+                  f"calls; its top: {trace.top(among=ks)}")
     print(f"{label}: reading the profile took {time.time() - t0:.1f} s")
 
 
@@ -1468,6 +1520,211 @@ def phase_json(smi: str) -> dict:
             "json_bound_by": bound_by, "json_max_abs_err": err}
 
 
+# Unified narrowphase against the primitive kernels where the primitive
+# distance is > -0.02 (near contact or separated), as the JAX package's
+# tests/test_convex.py holds the discrete distances.
+UNIFY_TOL, UNIFY_NEAR = 5e-4, -0.02
+# Card against CPU in float64 on the convex narrowphase: the same
+# elementwise arithmetic on both, but sums and the backward's scatter-adds
+# round in another order (measured: distances within ~5e-16, Jacobians
+# within ~3e-10; PERF.md).
+F64_TOL = 1e-9
+
+
+def unified_problem(device=None):
+    return pr2ish_table_problem(n_steps=30, lvs_substeps=2,
+                                unify_narrowphase=True, device=device)
+
+
+def phase_unified(smi: str) -> int:
+    """(a) The flagship under ``unify_narrowphase``: all 91 pairs through
+    the convex GJK + SAT kernel, B = 256, block path; checked with the
+    primitive scene's swept check."""
+    prob, uscene = unified_problem()
+    _, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
+
+    def against_primitive(res):
+        traj = res.x.reshape(B, 30, 8)
+        fr = torch.linspace(0.0, 1.0, 3, dtype=traj.dtype,
+                            device=traj.device)
+        a, b = traj[:, :-1], traj[:, 1:]
+        q = a[:, :, None, :] + fr[:, None] * (b - a)[:, :, None, :]
+        with torch.no_grad():
+            R, p = scene.tree.fk(q)
+            f0, f1 = (R[:, :, :-1], p[:, :, :-1]), (R[:, :, 1:], p[:, :, 1:])
+            sp, su = (sc.swept_distances(f0, f1) for sc in (scene, uscene))
+            fk = scene.tree.fk(traj)
+            dp, du = (sc.distances(fk) for sc in (scene, uscene))
+        for what, ref, got in (("swept, the solve's LVS sub-segments", sp,
+                                su), ("discrete, the waypoints", dp, du)):
+            near = ref > UNIFY_NEAR
+            err = float((got - ref).abs()[near].max())
+            print(f"unified flagship: unified vs primitive {what}: max "
+                  f"|diff| {err:.3e} over {int(near.sum())} of "
+                  f"{ref.numel()} queries with primitive d > {UNIFY_NEAR}; "
+                  f"signs differ on {int(((got < 0) != (ref < 0)).sum())}")
+        if not err <= UNIFY_TOL:
+            raise SystemExit(f"unified flagship: discrete distances differ "
+                             f"from the primitive kernels' by {err:.3e}")
+
+    return drive_path("unified flagship",
+                      prob.make_solve(flagship_params(), structured=True),
+                      scene, pr2ish_table_batch, B, 30, 8, fb.COUNTER,
+                      "admm_block_chunk_kernel", smi, MIN_VERIFIED,
+                      after=against_primitive)
+
+
+def narrowphase_f64(dev, dtype, n: int = 16, seed: int = 11):
+    """The unified pr2ish scene's discrete and swept distances with their
+    Jacobians at ``n`` seeded configuration pairs, on ``dev`` in
+    ``dtype``, returned on the CPU in float64."""
+    _, uscene = unified_problem(device="cpu")
+    tree = uscene.tree
+    rng = np.random.default_rng(seed)
+    q0 = rng.uniform(tree.lower + 0.05, tree.upper - 0.05, (n, 8))
+    q1 = np.clip(q0 + 0.3 * rng.standard_normal((n, 8)), tree.lower,
+                 tree.upper)
+    q0, q1 = (torch.as_tensor(v, dtype=dtype, device=dev) for v in (q0, q1))
+    out = [*uscene.distances_and_jac(tree.fk_with_axes(q0)),
+           *uscene.swept_distances_and_jac(tree.fk_with_axes(q0),
+                                           tree.fk_with_axes(q1))]
+    return [t.double().cpu() for t in out]
+
+
+def phase_unified_f64() -> None:
+    """(b) The convex narrowphase on the card against the CPU, float64 (and
+    float32 beside the CPU's own float32 error)."""
+    names = ("d", "J", "swept d", "swept J0", "swept J1")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    ref = narrowphase_f64(cpu, torch.float64)
+    got = narrowphase_f64(cuda, torch.float64)
+    got32 = narrowphase_f64(cuda, torch.float32)
+    cpu32 = narrowphase_f64(cpu, torch.float32)
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    print("unified narrowphase, 16 configurations x 91 pairs, card vs CPU "
+          "float64 max |diff|: " + ", ".join(
+              f"{n} {e:.2e}" for n, e in zip(names, errs))
+          + "; card float32 vs CPU float64: " + ", ".join(
+              f"{n} {float((g - r).abs().max()):.2e}"
+              for n, g, r in zip(names, got32, ref))
+          + "; CPU float32 vs CPU float64: " + ", ".join(
+              f"{n} {float((g - r).abs().max()):.2e}"
+              for n, g, r in zip(names, cpu32, ref)))
+    if not max(errs) <= F64_TOL:
+        raise SystemExit(f"unified narrowphase: card and CPU differ in "
+                         f"float64 by {max(errs):.3e}")
+
+
+def arm7_sdf_problem(n_steps: int, device):
+    """arm7's capsules against its table scene (slab and post) known only
+    through an SDF grid (2 cm cells), discrete collision constraints."""
+    scene = arm7_scene(world_objects=False)
+    boxes = [((0.35, 0.5, 0.05), (0.55, 0.0, 0.25)),
+             ((0.05, 0.05, 0.30), (0.39, 0.03, 1.00))]
+
+    def world(pts):
+        kw = dict(dtype=pts.dtype, device=pts.device)
+        return torch.stack([point_box_sdf(pts - torch.as_tensor(c, **kw),
+                                          torch.as_tensor(h, **kw))
+                            for h, c in boxes]).amin(0)
+
+    scene.add_world_sdf("world", bake_sdf(world, [-0.3, -0.9, -0.1],
+                                          [1.3, 0.9, 1.5], 0.02))
+    tree = arm7()
+    prob = TrajOptProblem(n_steps=n_steps, n_dof=7, joint_lower=tree.lower,
+                          joint_upper=tree.upper, fixed_steps=[0],
+                          device=device)
+    prob.add_term(joint_vel(n_steps, 7, is_cost=True, coeffs=np.full(7, 5.0)))
+    prob.add_term(joint_pos(n_steps, 7, is_cost=False, targets="goal",
+                            first_step=n_steps - 1, last_step=n_steps - 1))
+    prob.add_term(collision_term(scene, n_steps, margin=0.025, coeff=20.0,
+                                 is_cost=False, fixed_steps=[0]))
+    return prob, scene
+
+
+ARM6_HOME = np.array([0.0, -1.2, 1.6, -0.4, 1.57, 0.0])
+ARM6_GOAL = np.array([0.9, -1.0, 1.4, -0.4, 1.57, 0.3])
+
+
+def collision_scene_solve(path: str, dev, mesh_dir: str):
+    """A small float32 solve on ``dev`` with discrete_params() on the dense
+    path, 3 lanes: ``"arm6"`` (its shelf scene, 6 steps, as the JAX
+    package's tests/test_arm6.py), ``"mesh"`` (the mesh arm, hulls from
+    STL files through scene_from_urdf, 8 steps), ``"arm7 sdf"`` (10 steps
+    against the baked SDF world), ``"simple"`` (simple_collision_problem,
+    1 step).  Returns (status, SQP iterations, QP solves, x) on the CPU."""
+    rng = np.random.default_rng(3)
+    kw = dict(dtype=torch.float32, device=dev)
+    params = {}
+    if path == "simple":
+        prob, _ = simple_collision_problem(device=dev)
+        x0 = torch.as_tensor([[-0.75, 0.75], [-0.7, 0.8], [0.6, -0.7]], **kw)
+    else:
+        if path == "arm6":
+            n, home, goal = 6, ARM6_HOME, ARM6_GOAL
+            tree = arm6()
+            prob = TrajOptProblem(n_steps=n, n_dof=6, joint_lower=tree.lower,
+                                  joint_upper=tree.upper, fixed_steps=[0],
+                                  device=dev)
+            prob.add_term(joint_vel(n, 6, is_cost=True,
+                                    coeffs=np.full(6, 5.0)))
+            prob.add_term(joint_pos(n, 6, is_cost=False, targets="goal",
+                                    first_step=n - 1, last_step=n - 1))
+            prob.add_term(collision_term(arm6_scene(), n, margin=0.02,
+                                         coeff=20.0, is_cost=False,
+                                         fixed_steps=[0]))
+            scale = 0.05
+        elif path == "mesh":
+            n, home, goal = 8, MESH_ARM_HOME, MESH_ARM_GOAL
+            prob, _ = mesh_arm_problem(mesh_dir, n, device=dev)
+            scale = 0.05
+        else:
+            n, home, goal = 10, ARM7_HOME, ARM7_GOAL
+            prob, _ = arm7_sdf_problem(n, dev)
+            scale = ARM7_GOAL_SCALE
+        goals = torch.as_tensor(goal + scale * rng.standard_normal(
+            (3, len(goal))), **kw)
+        x0 = interpolated_init(torch.as_tensor(home, **kw).expand_as(goals),
+                               goals, n).reshape(3, -1)
+        params = {"goal": goals}
+    res = make_solver(prob.build(), discrete_params())(x0, *prob.bounds(x0),
+                                                        params)
+    return [t.cpu() for t in (res.status, res.n_iter, res.n_qp_solves,
+                              res.x)]
+
+
+def phase_collision_scenes() -> int:
+    """(c) Small solves of the other collision scenes, card (float32,
+    kernels) against the CPU (float32, plain versions): equal statuses.
+    Returns the dense kernel's launches on the card."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        write_mesh_arm(tmp)
+        for path in ("arm6", "mesh", "arm7 sdf", "simple"):
+            fd.COUNTER.reset()
+            t0 = time.time()
+            gpu = collision_scene_solve(path, cuda, tmp)
+            t_card = time.time() - t0
+            launches += fd.COUNTER.launches
+            ref = collision_scene_solve(path, cpu, tmp)
+            names = ("status", "SQP iterations", "QP solves")
+            print(f"collision scene solve ({path}, 3 lanes, float32): card "
+                  f"{t_card:.2f} s, {fd.COUNTER.launches} dense kernel "
+                  f"launches; card vs CPU " + ", ".join(
+                      f"{n} {g.tolist()} vs {c.tolist()}"
+                      for n, g, c in zip(names, gpu, ref))
+                  + f"; max |dx| {float((gpu[3] - ref[3]).abs().max()):.3e}")
+            if fd.COUNTER.launches == 0:
+                raise SystemExit(f"{path} solve did not launch the dense "
+                                 f"kernel")
+            if not torch.equal(gpu[0], ref[0]):
+                raise SystemExit(f"{path} solve: statuses differ between "
+                                 f"card and CPU")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1493,6 +1750,10 @@ def main() -> int:
     block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi)
     block["family_launches"] = timed("family", phase_family, smi)
     dense_k.update(timed("json front end", phase_json, smi))
+    block["unified_launches"] = timed("unified flagship", phase_unified, smi)
+    timed("unified narrowphase float64", phase_unified_f64)
+    dense_k["collision_scene_launches"] = timed("collision scenes",
+                                                phase_collision_scenes)
     dense_k["max_abs_err"] = max(dense_k["max_abs_err"],
                                  dense_k["json_max_abs_err"])
     print(f"total {time.time() - t_start:.1f} s")

@@ -8,7 +8,8 @@ a masked and toleranced variant, and a cost whose target is a params key),
 one case of each function on pr2ish: rows, weights and kinds equal, the dense Jacobian (against
 ``jax.jacrev`` of the JAX term over the whole trajectory) and the banded
 one (against its ``banded_jac``) to 1e-9, the band layout equal;
-``solve_ik`` to 1e-8.
+``solve_ik`` to 1e-8; a 10-step arm7 solve whose ``cart_pose`` target is
+an ``(R, p)`` params entry, equal counts and x to 1e-6.
 """
 
 import jax
@@ -162,3 +163,55 @@ def test_solve_ik_matches_jax(robot, pos_only):
                                atol=1e-12)
     e0 = solve_ik(ttree, ee, R_t, p_t, torch.as_tensor(home), iters=0)[1]
     assert float(e_t[0]) < 0.1 * float(e0)
+
+
+def _reach_problem(pkg, n):
+    """arm7, joint_vel cost and a ``cart_pose`` constraint on tool0 at the
+    last step whose target is the params key ``"tgt"``."""
+    if pkg == "jax":
+        from trajopt_tpu.problem.trajectory import TrajOptProblem
+        from trajopt_tpu.terms.joint import joint_vel
+        tree, cart, kw = jrobots.arm7(), jcart, {}
+    else:
+        from trajopt_tpu_torch.problem.trajectory import TrajOptProblem
+        from trajopt_tpu_torch.terms.joint import joint_vel
+        tree, cart, kw = trobots.arm7(), tcart, {"device": "cpu"}
+    prob = TrajOptProblem(n_steps=n, n_dof=7, joint_lower=tree.lower,
+                          joint_upper=tree.upper, fixed_steps=[0], **kw)
+    prob.add_term(joint_vel(n, 7, is_cost=True, coeffs=np.full(7, 5.0)))
+    prob.add_term(cart.cart_pose(tree, "tool0", n, n - 1, is_cost=False,
+                                 target="tgt"))
+    return prob
+
+
+def test_rotated_params_target_solve_matches_jax():
+    """A ``cart_pose`` target given per lane as an ``(R, p)`` params entry
+    (rotated away from the start's orientation): a 10-step arm7 solve of 3
+    lanes matches the JAX package's (status and counts equal, x to
+    1e-6), and the rotation is honoured (it changes the solution)."""
+    from trajopt_tpu.sqp.params import SQPParams as JParams
+    from trajopt_tpu_torch.sqp.params import SQPParams
+
+    n, lanes = 10, 3
+    goals = jbench.ARM7_GOAL + 0.1 * np.random.default_rng(6) \
+        .standard_normal((lanes, 7))
+    jtree = jrobots.arm7()
+    R, p = jax.vmap(jtree.fk)(jnp.asarray(goals))
+    ee = jtree.link_id("tool0")
+    R_t = np.einsum("bij,jk->bik", np.asarray(R[:, ee]), _RX)
+    p_t = np.array(p[:, ee])
+    w = np.linspace(0.0, 1.0, n)[:, None]
+    inits = jbench.ARM7_HOME * (1 - w) + goals[:, None, :] * w
+    jsolve = _reach_problem("jax", n).make_solve(JParams())
+    ref = jax.tree.map(np.asarray, jax.jit(jax.vmap(
+        lambda i, r, q: jsolve(i, {"tgt": (r, q)})))(
+        jnp.asarray(inits), jnp.asarray(R_t), jnp.asarray(p_t)))
+    solve = _reach_problem("torch", n).make_solve(SQPParams())
+    res = solve(inits, {"tgt": (R_t, p_t)})
+    assert (ref.status == 1).all()
+    np.testing.assert_array_equal(res.status.numpy(), ref.status)
+    np.testing.assert_array_equal(res.n_iter.numpy(), ref.n_iter)
+    np.testing.assert_array_equal(res.n_qp_solves.numpy(), ref.n_qp_solves)
+    np.testing.assert_allclose(res.x.numpy(), ref.x, rtol=0, atol=1e-6)
+    pos_only = solve(inits, {"tgt": p_t})
+    assert np.abs(pos_only.x.numpy() - res.x.numpy()).max() > 1e-2

@@ -1,6 +1,7 @@
 """Port on the card: the hand-written chunk kernels (block and dense)
-against their plain versions, the wrappers' checks and launch counts, and
-a small solve of each QP path.
+against their plain versions, the wrappers' checks and launch counts, a
+small solve of each QP path, and the convex narrowphase and an SDF grid's
+queries against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -483,3 +484,65 @@ def test_restart_family_solve_on_the_card(cuda, monkeypatch):
     plain = solve(cuda, plain=True)
     tol = torch.clamp_min(4 * spread, 1e-4)
     assert ((card.x - plain.x).abs().amax(-1) <= tol).all()
+
+
+def _narrowphase(dev, dtype, n=12, seed=11):
+    """The unified pr2ish scene's discrete and swept distances with their
+    Jacobians (all pairs through the convex GJK + SAT kernel) at seeded
+    configurations, on ``dev`` in ``dtype``, returned on the CPU in
+    float64."""
+    _, scene = pr2ish_table_problem(n_steps=4, lvs_substeps=2,
+                                    unify_narrowphase=True, device="cpu")
+    tree = scene.tree
+    rng = np.random.default_rng(seed)
+    q0 = rng.uniform(tree.lower + 0.05, tree.upper - 0.05, (n, 8))
+    q1 = np.clip(q0 + 0.3 * rng.standard_normal((n, 8)), tree.lower,
+                 tree.upper)
+    q0, q1 = (torch.as_tensor(v, dtype=dtype, device=dev) for v in (q0, q1))
+    out = [*scene.distances_and_jac(tree.fk_with_axes(q0)),
+           *scene.swept_distances_and_jac(tree.fk_with_axes(q0),
+                                          tree.fk_with_axes(q1))]
+    return [t.double().cpu() for t in out]
+
+
+def test_convex_narrowphase_on_the_card(cuda):
+    """Float64 on the card equals the CPU (the same elementwise
+    arithmetic); float32 on the card lies within twice the CPU float32's
+    own distance to float64, plus 1e-6."""
+    cpu = torch.device("cpu")
+    ref = _narrowphase(cpu, torch.float64)
+    for g, r in zip(_narrowphase(cuda, torch.float64), ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-9)
+    own = [(c - r).abs().max() for c, r in
+           zip(_narrowphase(cpu, torch.float32), ref)]
+    for g, r, e in zip(_narrowphase(cuda, torch.float32), ref, own):
+        assert float((g - r).abs().max()) <= 2 * float(e) + 1e-6
+
+
+def test_sdf_query_on_the_card(cuda):
+    """An SDF grid's queries and gradients on the card equal the CPU's in
+    float64; in float32 they lie within twice the CPU float32's own
+    distance to float64, plus 1e-6."""
+    from trajopt_tpu_torch.collision.geometry import point_box_sdf
+    from trajopt_tpu_torch.collision.sdf_grid import bake_sdf
+
+    grid = bake_sdf(lambda p: point_box_sdf(
+        p - torch.tensor([0.3, 0.0, 0.5], dtype=p.dtype),
+        torch.tensor([0.2, 0.3, 0.1], dtype=p.dtype)),
+        [-1, -1, -0.5], [1, 1, 1.5], 0.05)
+    pts = np.random.default_rng(0).uniform(-1.3, 1.8, (500, 3))
+
+    def query(dev, dt):
+        p = torch.tensor(pts, dtype=dt, device=dev, requires_grad=True)
+        d = grid.query(p)
+        (g,) = torch.autograd.grad(d.sum(), [p])
+        return d.detach().double().cpu(), g.double().cpu()
+
+    cpu = torch.device("cpu")
+    ref = query(cpu, torch.float64)
+    for got, r in zip(query(cuda, torch.float64), ref):
+        np.testing.assert_allclose(got.numpy(), r.numpy(), rtol=0, atol=1e-12)
+    own = [(c - r).abs().max() for c, r in zip(query(cpu, torch.float32),
+                                                ref)]
+    for g, r, e in zip(query(cuda, torch.float32), ref, own):
+        assert float((g - r).abs().max()) <= 2 * float(e) + 1e-6

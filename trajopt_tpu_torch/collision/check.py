@@ -17,12 +17,14 @@ from trajopt_tpu_torch.collision.world import CollisionScene
 
 
 def check_trajectory(scene: CollisionScene, traj, margin: float = 0.0,
-                     substeps: int = 20):
+                     substeps: int = 20, params=None):
     """(ok, min_distance): ``ok`` iff every state interpolated at
     ``substeps`` fractions ``i / substeps`` of each gap, plus the last
     state, keeps every pair distance above ``margin``.  ``traj`` is one
     trajectory ``[n_steps, n_dof]`` (returns a bool and a float) or a batch
-    ``[B, n_steps, n_dof]`` (returns bool and distance tensors [B])."""
+    ``[B, n_steps, n_dof]`` (returns bool and distance tensors [B]).
+    ``params`` supplies the centers of ``center_param`` world geometry
+    (``[3]``, or ``[B, 3]`` per lane of a batch)."""
     traj = torch.as_tensor(traj)
     single = traj.dim() == 2
     if single:
@@ -34,7 +36,7 @@ def check_trajectory(scene: CollisionScene, traj, margin: float = 0.0,
     qs = torch.cat([qs.reshape(traj.shape[0], -1, traj.shape[-1]),
                     traj[:, -1:]], 1)
     with torch.no_grad():
-        d = scene.distances(scene.tree.fk(qs))
+        d = scene.distances(scene.tree.fk(qs), params)
     dmin = torch.amin(d.reshape(d.shape[0], -1), -1)
     if single:
         return bool(dmin[0] > margin), float(dmin[0])

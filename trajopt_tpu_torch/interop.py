@@ -1,6 +1,7 @@
 """Carry a problem's state across from the JAX package as plain numpy.
 
 A kinematic tree and a collision scene travel as dicts of numpy arrays
+(ragged per-geom data -- hulls, SDF grids -- as lists with None gaps)
 (``tree_to_numpy`` / ``scene_to_numpy`` read any object with the JAX
 package's attribute layout, without importing it); ``tree_from_numpy`` /
 ``scene_from_numpy`` build the port's objects from them, keeping the
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from trajopt_tpu_torch.collision.sdf_grid import SdfGrid
 from trajopt_tpu_torch.collision.world import CollGeom, CollisionScene
 from trajopt_tpu_torch.kinematics.chain import KinematicTree, ancestor_matrix
 from trajopt_tpu_torch.kinematics.urdf import UrdfJoint
@@ -68,9 +70,16 @@ def tree_from_numpy(d: dict) -> KinematicTree:
                                  len(active)))
 
 
+def _rows(v):
+    return None if v is None else np.asarray(v, float)
+
+
 def scene_to_numpy(scene) -> dict:
-    """Primitive geometry (kinds, links, params, local poses, capsule
-    endpoints) and the candidate-pair list of a collision scene."""
+    """Geometry (kinds, links, params, local poses, capsule endpoints;
+    per geom the hull vertices, normals and edges, the SDF grid as
+    (values, origin, spacing) and the center's params key, each None where
+    it has none), the narrowphase options and the candidate-pair list of a
+    collision scene."""
     gs = scene.geoms
     index = {g.name: i for i, g in enumerate(gs)}
     return {
@@ -89,6 +98,17 @@ def scene_to_numpy(scene) -> dict:
                              for a, b in scene.pairs()],
                             np.int64).reshape(-1, 2),
         "check_self_collision": bool(scene.check_self_collision),
+        "verts": [_rows(g.verts) for g in gs],
+        "normals": [_rows(g.normals) for g in gs],
+        "edges": [_rows(g.edges) for g in gs],
+        "grids": [None if g.grid is None else
+                  (np.asarray(g.grid.values, float),
+                   np.asarray(g.grid.origin, float), float(g.grid.spacing))
+                  for g in gs],
+        "p_params": [g.p_param for g in gs],
+        "unify_narrowphase": bool(getattr(scene, "unify_narrowphase",
+                                          False)),
+        "max_cross_edges": int(getattr(scene, "max_cross_edges", 6)),
     }
 
 
@@ -97,9 +117,13 @@ def scene_from_numpy(d: dict, tree: KinematicTree | None = None
     """The port's scene over ``tree`` (default: built from ``d["tree"]``),
     with ``d["pairs"]`` as its candidate pairs, moving geom first."""
     tree = tree_from_numpy(d["tree"]) if tree is None else tree
+    n = len(d["names"])
     scene = CollisionScene(
-        tree, check_self_collision=bool(d["check_self_collision"]))
+        tree, check_self_collision=bool(d["check_self_collision"]),
+        unify_narrowphase=bool(d.get("unify_narrowphase", False)),
+        max_cross_edges=int(d.get("max_cross_edges", 6)))
     for i, name in enumerate(d["names"]):
+        grid = d.get("grids", [None] * n)[i]
         scene.add_geom(CollGeom(
             name=str(name), kind=str(d["kinds"][i]),
             params=tuple(float(v)
@@ -108,7 +132,12 @@ def scene_from_numpy(d: dict, tree: KinematicTree | None = None
             R_local=np.asarray(d["R_local"][i], float),
             p_local=np.asarray(d["p_local"][i], float),
             ea=np.asarray(d["ea"][i], float),
-            eb=np.asarray(d["eb"][i], float)))
+            eb=np.asarray(d["eb"][i], float),
+            grid=None if grid is None else SdfGrid(*grid),
+            p_param=d.get("p_params", [None] * n)[i],
+            verts=d.get("verts", [None] * n)[i],
+            normals=d.get("normals", [None] * n)[i],
+            edges=d.get("edges", [None] * n)[i]))
     scene.pair_names = [(str(d["names"][a]), str(d["names"][b]))
                         for a, b in d["pairs"]]
     return scene

@@ -1,9 +1,10 @@
-"""Benchmark problem builders: the pr2ish arm-around-table cast workload
-and the arm7 table workload.
+"""Benchmark problem builders: the pr2ish arm-around-table cast workload,
+the arm7 table workload and the spherebot simple-collision problem.
 
-Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``,
-``pr2ish_table_batch`` with its hard mix, ``pr2ish_restart_family``,
-``arm_table_problem`` and ``arm_table_batch``), plus :func:`swept_verify`,
+Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``
+with ``unify_narrowphase``, ``pr2ish_table_batch`` with its hard mix,
+``pr2ish_restart_family``, ``arm_table_problem``, ``arm_table_batch`` and
+``simple_collision_problem``), plus :func:`swept_verify`,
 the independent post-solve swept-clearance check of the repository's
 ``bench.py``.  Goals come from a numpy seed (the JAX builders draw them
 with ``jax.random``).
@@ -16,7 +17,8 @@ import torch
 
 from trajopt_tpu_torch import resolve_device, resolve_dtype
 from trajopt_tpu_torch.collision.world import CollisionScene
-from trajopt_tpu_torch.models.robots import (arm7, arm7_scene, pr2ish,
+from trajopt_tpu_torch.models.robots import (arm7, arm7_scene, boxbot,
+                                             mesh_arm_scene, pr2ish,
                                              pr2ish_scene)
 from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
                                                   interpolated_init)
@@ -106,16 +108,20 @@ PR2ISH_RESTART_VIAS = np.array([
 def pr2ish_table_problem(n_steps: int = 30, *, evaluator: str = "cast",
                          margin: float = 0.025, coeff: float = 20.0,
                          lvs_substeps: int = 3,
-                         max_num_cnt: int | None = 16, device=None,
+                         max_num_cnt: int | None = 16,
+                         unify_narrowphase: bool = False, device=None,
                          ) -> tuple[TrajOptProblem, CollisionScene]:
     """PR2-class arm-around-table CAST workload: 8-DOF (torso lift + 7R
     arm), self-collision on, 91 candidate pairs; joint_vel smoothing cost,
     goal joint-pose equality constraint (params key ``'goal'``) and cast
     collision inequality constraints with the worst ``max_num_cnt`` rows
-    per (gap, sub-segment).  The problem solves on ``device`` (None: CUDA,
+    per (gap, sub-segment).  ``unify_narrowphase`` routes every pair
+    through the convex GJK + SAT kernel instead of the closed-form
+    primitive kernels.  The problem solves on ``device`` (None: CUDA,
     raising when there is none)."""
     tree = pr2ish()
     scene = pr2ish_scene()
+    scene.unify_narrowphase = unify_narrowphase
     prob = TrajOptProblem(n_steps=n_steps, n_dof=8, joint_lower=tree.lower,
                           joint_upper=tree.upper, fixed_steps=[0],
                           device=resolve_device(device))
@@ -183,6 +189,53 @@ def pr2ish_restart_family(goals: torch.Tensor, n_steps: int = 30,
         b = interpolated_init(via, goals, n_steps - h)
         out.append(torch.cat([a, b[:, 1:]], 1))
     return torch.stack(out, 1)
+
+
+def simple_collision_problem(device=None
+                             ) -> tuple[TrajOptProblem, CollisionScene]:
+    """Spherebot simple-collision scene (simple_collision_test.json): one
+    step pulled into the obstacle by a joint_pos cost, pushed out by a
+    collision cost and constraint.  Solves on ``device`` (None: CUDA,
+    raising when there is none)."""
+    tree = boxbot()
+    scene = CollisionScene(tree)
+    scene.add_link_sphere("boxbot_link", 0.25)
+    scene.add_world_box("obstacle", [0.5, 0.5, 0.5], [0.0, 0.0, 0.0])
+    prob = TrajOptProblem(n_steps=1, n_dof=2, joint_lower=[-10, -10],
+                          joint_upper=[10, 10], device=resolve_device(device))
+    prob.add_term(collision_term(scene, 1, margin=0.3, coeff=1.0,
+                                 is_cost=True))
+    prob.add_term(collision_term(scene, 1, margin=0.2, coeff=1.0,
+                                 is_cost=False))
+    prob.add_term(joint_pos(1, 2, is_cost=True, targets=np.zeros(2),
+                            first_step=0, last_step=0))
+    return prob, scene
+
+
+MESH_ARM_HOME = np.array([-1.2, 0.3])
+MESH_ARM_GOAL = np.array([1.2, -0.3])
+
+
+def mesh_arm_problem(directory: str, n_steps: int = 8, device=None
+                     ) -> tuple[TrajOptProblem, CollisionScene]:
+    """The mesh arm (``models/robots.py``, link meshes written to
+    ``directory`` by ``write_mesh_arm``) swinging across its post:
+    joint_vel cost, goal joint-pose constraint (params key ``'goal'``) and
+    LVS-discrete collision constraints (margin 0.02, 4 sub-points a gap) on
+    its hull-vs-box pairs.  The straight-line init runs through the post;
+    the solve folds the elbow to pass it."""
+    scene = mesh_arm_scene(directory)
+    tree = scene.tree
+    prob = TrajOptProblem(n_steps=n_steps, n_dof=2, joint_lower=tree.lower,
+                          joint_upper=tree.upper, fixed_steps=[0],
+                          device=resolve_device(device))
+    prob.add_term(joint_vel(n_steps, 2, is_cost=True, coeffs=np.full(2, 5.0)))
+    prob.add_term(joint_pos(n_steps, 2, is_cost=False, targets="goal",
+                            first_step=n_steps - 1, last_step=n_steps - 1))
+    prob.add_term(collision_term(scene, n_steps, margin=0.02, coeff=20.0,
+                                 is_cost=False, evaluator="lvs_discrete",
+                                 lvs_substeps=3, fixed_steps=[0]))
+    return prob, scene
 
 
 def _table_batch(goals: np.ndarray, home: np.ndarray, n_steps, dtype,

@@ -100,8 +100,9 @@ class TrajOptProblem:
                    structured: bool = False, device=None):
         """Returns ``solve(init_traj, params) -> SQPResult`` over a batch:
         ``init_traj [B, n_steps, n_dof_total]`` (or ``[B, n]``), ``params``
-        a dict of per-lane arrays (``"restart_inits"`` among them: a
-        multi-start family, see ``make_solver``).  Runs on ``device``, else
+        a dict of per-lane arrays or tuples of them, such as an ``(R, p)``
+        pose target (``"restart_inits"`` among them: a multi-start family,
+        see ``make_solver``).  Runs on ``device``, else
         the problem's device, else CUDA (raising when there is none);
         float32 on the card, float64 on the CPU.  ``structured=True`` solves
         the QPs on the block-banded path (needs banded Jacobians on every
@@ -117,7 +118,9 @@ class TrajOptProblem:
         def solve(init_traj, params=None) -> SQPResult:
             x0 = torch.as_tensor(init_traj, dtype=dtype, device=dev)
             x0 = x0.reshape(x0.shape[0], -1)
-            p = {k: torch.as_tensor(v, dtype=dtype, device=dev)
+            p = {k: tuple(torch.as_tensor(e, dtype=dtype, device=dev)
+                          for e in v) if isinstance(v, tuple)
+                 else torch.as_tensor(v, dtype=dtype, device=dev)
                  for k, v in (params or {}).items()}
             lb, ub = self.bounds(x0)
             return solver(x0, lb, ub, p)

@@ -46,6 +46,13 @@ PENALTY_COST_KINDS = (Kind.COST_ABS, Kind.COST_HINGE)
 GENERIC_KINDS = (Kind.COST_GENERIC_FULL, Kind.COST_GENERIC_DIAG)
 
 
+def one_lane(params: dict) -> dict:
+    """A single lane's params (as ``torch.func.vmap`` hands them over)
+    with the lane axis put back: every tensor leaf ``v -> v[None]``."""
+    return {k: tuple(e[None] for e in v) if isinstance(v, tuple)
+            else v[None] for k, v in params.items()}
+
+
 def as_like(v, like: torch.Tensor) -> torch.Tensor:
     """``v`` as a tensor on ``like``'s device and dtype."""
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
@@ -155,7 +162,7 @@ def _residual_and_jac(term: TermSet, x, params, jac_cache=None, key=None):
 def _lane_jacrev(t: TermSet, x, params):
     """Per-lane reverse-mode Jacobian [B, rows, n] of a batched term."""
     def f(v, p):
-        return t.fn(v[None], {k: val[None] for k, val in p.items()})[0]
+        return t.fn(v[None], one_lane(p))[0]
     return torch.func.vmap(torch.func.jacrev(f))(x, params)
 
 
@@ -232,8 +239,7 @@ def _generic_taylor(t: TermSet, x, params):
     derivatives by forward-over-forward products, with no [n, n] Hessian
     formed (COST_GENERIC_DIAG)."""
     def f(v, p):
-        return t.fn(v[None], {k: val[None] for k, val in p.items()}
-                    ).reshape(())
+        return t.fn(v[None], one_lane(p)).reshape(())
 
     func = torch.func
     val = func.vmap(f)(x, params)

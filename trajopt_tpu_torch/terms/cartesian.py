@@ -12,9 +12,8 @@ per-problem function with ``jax.jacfwd`` / ``jax.vjp``).  ``cart_vel``
 and ``avoid_singularity`` use the geometric Jacobian directly.
 
 A target given as a params key (``cart_pose(target="key")``) reads
-``params[key]`` per lane as a position ``[B, 3]`` with the identity
-rotation (the JAX package also takes an ``(R, p)`` tuple there; the port's
-``make_solve`` hands every params entry over as one tensor).
+``params[key]`` per lane as a position ``[B, 3]`` (identity rotation) or as
+an ``(R [B, 3, 3], p [B, 3])`` tuple, as the JAX term does.
 """
 
 from __future__ import annotations
@@ -28,7 +27,8 @@ from trajopt_tpu_torch.kinematics.chain import KinematicTree
 from trajopt_tpu_torch.kinematics.transforms import (
     apply_tolerances, axis_angle_matrix, compose, rotvec_from_matrix,
     transform_error)
-from trajopt_tpu_torch.sqp.nlp import Consts, Kind, TermSet, banded_to_dense
+from trajopt_tpu_torch.sqp.nlp import (Consts, Kind, TermSet,
+                                       banded_to_dense, one_lane)
 
 
 def _step_q(x, t, n_steps, n_dof_total, n_dof):
@@ -39,7 +39,7 @@ def _lane_jacfwd(rows_q, q, params):
     """(rows [B, k], Jacobian [B, k, n_dof]) of the batched ``rows_q`` per
     lane: forward mode over the lane's n_dof joints."""
     def f(qq, p):
-        r = rows_q(qq[None], {k: v[None] for k, v in p.items()})[0]
+        r = rows_q(qq[None], one_lane(p))[0]
         return r, r
     J, r = torch.func.vmap(torch.func.jacfwd(f, has_aux=True))(q, params)
     return r, J
@@ -132,7 +132,10 @@ def cart_pose(tree: KinematicTree, link: str, n_steps: int, timestep: int,
 
     def target_pose(params, q):
         if isinstance(target, str):
-            return consts.get("R_tgt", q), params[target]
+            tgt = params[target]
+            if isinstance(tgt, tuple):
+                return tgt
+            return consts.get("R_tgt", q), tgt
         return consts.get("R_tgt", q), consts.get("p_tgt", q)
 
     def rows_q(q, params):

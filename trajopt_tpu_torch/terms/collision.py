@@ -26,6 +26,8 @@ Each gives the residual rows, the dense Jacobian (``jac_fn`` /
 autograd) and the banded one (``banded_jac`` / ``val_banded_jac``, for the
 block QP path), with per-pair coefficient/margin overrides.  The LVS
 evaluator queries every lane, gap and sub-point in one narrowphase call.
+Every narrowphase call gets the solve's ``params`` (the centers of world
+geometry registered with ``center_param``), as the JAX term's do.
 """
 
 from __future__ import annotations
@@ -216,13 +218,14 @@ def _discrete_term(name, kind, scene, n_steps, n_dof_total, coeff_mat,
 
     def raw(x, params):
         """Exact residual rows [B, S * k]."""
-        rows = sel.values(_viol(scene.distances(tree.fk(_qs(x))), x))
+        rows = sel.values(_viol(scene.distances(tree.fk(_qs(x)), params),
+                                x))
         return rows.reshape(x.shape[0], -1)
 
-    def _select(x):
+    def _select(x, params):
         """(rows [B, S, k], Jacobian blocks [B, S, k, n_dof]) from one
         narrowphase pass, after the within-step selection."""
-        ds, Js = scene.distances_and_jac(tree.fk_with_axes(_qs(x)))
+        ds, Js = scene.distances_and_jac(tree.fk_with_axes(_qs(x)), params)
         cf = consts.get("coeff", x)
         viol, (Js,) = sel.select(_viol(ds, x), cf, -Js * cf[..., None])
         return viol, Js
@@ -243,18 +246,18 @@ def _discrete_term(name, kind, scene, n_steps, n_dof_total, coeff_mat,
         return W
 
     def val_jac(x, params):
-        viol, Js = _select(x)
+        viol, Js = _select(x, params)
         return viol.reshape(x.shape[0], -1), _dense(Js)
 
     def val_banded_jac(x, params):
-        viol, Js = _select(x)
+        viol, Js = _select(x, params)
         return viol.reshape(x.shape[0], -1), _banded(Js)
 
     is_cost = kind is Kind.COST_HINGE
     return TermSet(
         name, kind, raw, S * k_rows,
-        jac_fn=lambda x, p: _dense(_select(x)[1]), val_jac_fn=val_jac,
-        banded_jac=lambda x, p: _banded(_select(x)[1]),
+        jac_fn=lambda x, p: _dense(_select(x, p)[1]), val_jac_fn=val_jac,
+        banded_jac=lambda x, p: _banded(_select(x, p)[1]),
         band_starts=np.repeat(steps * n_dof_total, k_rows),
         band_width=n_dof_total, val_banded_jac=val_banded_jac,
         groups=None if is_cost else np.repeat(np.arange(S), k_rows),
@@ -309,9 +312,9 @@ def _gap_term(name, kind, scene, n_steps, n_dof_total, coeff_mat, margin_mat,
         if swept:
             R, p = tree.fk(_interp(x))              # [B, G, n_sub+1, L, ...]
             ds = scene.swept_distances((R[:, :, :-1], p[:, :, :-1]),
-                                       (R[:, :, 1:], p[:, :, 1:]))
+                                       (R[:, :, 1:], p[:, :, 1:]), params)
         else:
-            ds = scene.distances(tree.fk(_interp(x)))
+            ds = scene.distances(tree.fk(_interp(x)), params)
         return sel.values(_viol(ds, x)).reshape(x.shape[0], -1)
 
     def val_banded_jac(x, params):
@@ -323,13 +326,14 @@ def _gap_term(name, kind, scene, n_steps, n_dof_total, coeff_mat, margin_mat,
         if swept:
             ds, Ja, Jb = scene.swept_distances_and_jac(
                 (R[:, :, :-1], p[:, :, :-1], z[:, :, :-1], o[:, :, :-1]),
-                (R[:, :, 1:], p[:, :, 1:], z[:, :, 1:], o[:, :, 1:]))
+                (R[:, :, 1:], p[:, :, 1:], z[:, :, 1:], o[:, :, 1:]),
+                params)
             fa = consts.get("fr_a", x)[:, None, None]
             fb = consts.get("fr_b", x)[:, None, None]
             J0 = (1.0 - fa) * Ja + (1.0 - fb) * Jb
             J1 = fa * Ja + fb * Jb
         else:
-            ds, J = scene.distances_and_jac((R, p, z, o))
+            ds, J = scene.distances_and_jac((R, p, z, o), params)
             f = consts.get("fr_all", x)[:, None, None]
             J0, J1 = (1.0 - f) * J, f * J
         cf = consts.get("coeff", x)
