@@ -72,6 +72,23 @@ Phases, each of which must pass:
    STL links written to a temporary directory, through
    ``scene_from_urdf`` with an SRDF), arm7 against an SDF grid of its
    table scene, and ``simple_collision_problem``.
+12. the ifopt and host paths: (a) the PR2 planning problem built through
+   the ifopt component model (:func:`ifopt_pr2_problem`: pr2ish, 30
+   ``NodesVariables`` nodes of 8 ``position`` variables, the start pinned
+   by its bounds, a squared ``JointVelConstraint`` cost, a
+   ``JointPosConstraint`` goal and 29 ``ContinuousCollisionConstraint``s,
+   LVS 2, 3 rows a gap; n 240, m 335 on the dense path), solved once
+   through ``Problem.solve()`` and on B = 64 noisy starts through
+   ``make_solver(problem.build())``, swept-verified, with the dense
+   kernel's launches, plan and time on the path's first QP (held against
+   its plain version) and a profiled repeat; (b) ``solve_reference`` (the
+   host driver: convexify on the card, the native C++ QP on the host) on
+   (a)'s problem against (a)'s single solve; (c) the batch split of
+   ``parallel/mesh.py`` over every visible card on ``arm_table_problem(10)``
+   at B = 32 against the unsplit solve; (d) ``utils/profiling.trace``
+   around (c)'s solve (a Chrome trace with kernel events) and ``Timer``;
+   (e) ``dump_failed_qps`` on a solve cut at one SQP iteration and a
+   checkpoint round trip.
 
 Phase 5 also holds, card (float32) against CPU: a borderline-goal pr2ish
 solve that escalates its penalties, with and without the saturated-dual
@@ -107,6 +124,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from trajopt_tpu_torch import ifopt
 from trajopt_tpu_torch.collision.check import check_trajectory
 from trajopt_tpu_torch.collision.geometry import point_box_sdf
 from trajopt_tpu_torch.collision.sdf_grid import bake_sdf
@@ -115,16 +133,22 @@ from trajopt_tpu_torch.models.benchmarks import (ARM7_GOAL,
                                                  ARM7_GOAL_SCALE, ARM7_HOME,
                                                  MESH_ARM_GOAL,
                                                  MESH_ARM_HOME,
+                                                 PR2ISH_HOME,
                                                  arm_table_batch,
                                                  arm_table_problem,
                                                  mesh_arm_problem,
+                                                 pr2ish_goals,
                                                  pr2ish_restart_family,
                                                  pr2ish_table_batch,
                                                  pr2ish_table_problem,
                                                  simple_collision_problem,
                                                  swept_verify)
 from trajopt_tpu_torch.models.robots import (arm6, arm6_scene, arm7,
-                                             arm7_scene, write_mesh_arm)
+                                             arm7_scene, pr2ish,
+                                             pr2ish_scene, write_mesh_arm)
+from trajopt_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                             make_sharded_batch_solver,
+                                             summarize)
 from trajopt_tpu_torch.problem.json_io import (Environment,
                                                construct_problem,
                                                load_problem_file)
@@ -144,11 +168,15 @@ from trajopt_tpu_torch.qp.admm_structured import solve_qp_structured
 from trajopt_tpu_torch.qp.ipm import solve_qp_ipm
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+from trajopt_tpu_torch.sqp.reference_solver import solve_reference
 from trajopt_tpu_torch.sqp.solver import (banded_qp, block_qp, build_qp,
                                           ipm_config, make_solver,
                                           num_qp_rows)
 from trajopt_tpu_torch.terms.collision import collision_term
 from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
+from trajopt_tpu_torch.utils.checkpoint import load_result, save_result
+from trajopt_tpu_torch.utils.debug import dump_failed_qps
+from trajopt_tpu_torch.utils.profiling import Timer, trace
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -1365,20 +1393,51 @@ def phase_family(smi: str) -> int:
     return launches
 
 
-def json_first_qp(jp, inits: torch.Tensor):
-    """The reach document's first QP on the lanes ``inits [B, T, 7]``:
-    convexified at the inits with the initial merit coefficients, the trust
-    box the initial size around x.  Returns (QPData, x)."""
-    nlp = jp.prob.build()
-    x = inits.reshape(inits.shape[0], -1)
-    lb, ub = jp.prob.bounds(x)
+def first_dense_qp(nlp, x, lb, ub, sqp: SQPParams):
+    """A dense path's first QP on the lanes ``x [B, n]`` within bounds
+    ``lb``, ``ub``: convexified at x with the initial merit coefficients,
+    the trust box the initial size around x."""
     model = nlp_mod.convexify(nlp, x, {}, nlp_mod.linear_jacobians(nlp, x,
                                                                    {}))
     coeffs = x.new_full((x.shape[0], nlp_mod.num_cnt_groups(nlp)),
-                        jp.sqp.initial_merit_error_coeff)
-    box = jp.sqp.initial_trust_box_size
+                        sqp.initial_merit_error_coeff)
+    box = sqp.initial_trust_box_size
     return build_qp(nlp, model, coeffs, torch.maximum(lb, x - box),
-                    torch.minimum(ub, x + box)), x
+                    torch.minimum(ub, x + box))
+
+
+def dense_on_first_qp(label: str, qp, x0, cfg: ADMMConfig) -> dict:
+    """The dense kernel on a path's first QP (``qp``, at ``x0``): held
+    against its plain version, both timed, the bound computed; prints the
+    cluster plan.  Returns max_abs_err, ms, plain_ms, bound_ms,
+    bound_by."""
+    args = dense.chunk_operands(qp, x0, cfg)
+    kw = dict(sigma=cfg.sigma, alpha=cfg.alpha, n_iters=cfg.check_every)
+    _, err = hold_dense(f"dense {label} first QP", args, kw)
+    ms = cuda_ms(lambda: fd.chunk_cuda(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: fd.chunk_plain(*args, **kw), 5)
+    flops = fd.chunk_flops(args[1], kw["n_iters"])
+    nbytes = fd.chunk_bytes(args[1])
+    bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
+    B, m, n = args[1].shape
+    cs, smem = fd.cluster_plan(n, m)
+    clusters = fd.max_active_clusters(n, m)
+    print(f"dense chunk on the {label} first QP, B={B}, n={n}, m={m}, "
+          f"{kw['n_iters']} iterations: clusters of {cs} ({smem} B of "
+          f"shared memory per block), at most {clusters} resident "
+          f"(cudaOccupancyMaxActiveClusters) -> {B / clusters:.2f} waves; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP -> "
+          f"{t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def json_first_qp(jp, inits: torch.Tensor):
+    """The reach document's first QP on the lanes ``inits [B, T, 7]``.
+    Returns (QPData, x)."""
+    x = inits.reshape(inits.shape[0], -1)
+    return first_dense_qp(jp.prob.build(), x, *jp.prob.bounds(x), jp.sqp), x
 
 
 def phase_json(smi: str) -> dict:
@@ -1475,24 +1534,8 @@ def phase_json(smi: str) -> dict:
                   launches)
 
     # (c) the dense kernel on (b)'s first QP
-    cfg = jp.sqp.qp
     qp, x0 = json_first_qp(jp, inits)
-    args = dense.chunk_operands(qp, x0, cfg)
-    kw = dict(sigma=cfg.sigma, alpha=cfg.alpha, n_iters=cfg.check_every)
-    _, err = hold_dense("dense json first QP", args, kw)
-    ms = cuda_ms(lambda: fd.chunk_cuda(*args, **kw), 20)
-    plain_ms = cuda_ms(lambda: fd.chunk_plain(*args, **kw), 5)
-    flops = fd.chunk_flops(args[1], kw["n_iters"])
-    nbytes = fd.chunk_bytes(args[1])
-    bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
-    clusters = fd.max_active_clusters(n, m)
-    print(f"dense chunk on the reach document's first QP, B={REACH_B}, "
-          f"n={n}, m={m}, {kw['n_iters']} iterations: clusters of {cs}, at "
-          f"most {clusters} resident (cudaOccupancyMaxActiveClusters) -> "
-          f"{REACH_B / clusters:.2f} waves; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e6:.1f} "
-          f"MB -> {t_bytes:.4f} ms)")
+    chunk = dense_on_first_qp("reach document's", qp, x0, jp.sqp.qp)
 
     # (d) MPC: three cycles of the arm7 workload with a drifting goal
     prob, _ = arm_table_problem(n_steps=ARM_STEPS)
@@ -1515,9 +1558,8 @@ def phase_json(smi: str) -> dict:
         if n_conv < ARM_MIN_VERIFIED:
             raise SystemExit(f"mpc cycle {cycle}: only {n_conv}/{REACH_B} "
                              f"converged")
-    return {"json_launches": launches, "json_ms": ms,
-            "json_plain_ms": plain_ms, "json_bound_ms": bound_ms,
-            "json_bound_by": bound_by, "json_max_abs_err": err}
+    return {"json_launches": launches,
+            **{f"json_{k}": v for k, v in chunk.items()}}
 
 
 # Unified narrowphase against the primitive kernels where the primitive
@@ -1724,6 +1766,265 @@ def phase_collision_scenes() -> int:
     return launches
 
 
+# Phase 12: the PR2 planning problem through the ifopt model on the dense
+# path: n 240, m 335 (29 gaps x 3 rows, 8 goal rows, 240 box rows).
+IFOPT_STEPS, IFOPT_B = 30, 64
+IFOPT_MIN_VERIFIED = 61     # of 64 lanes: 95 %
+IFOPT_NOISE = 0.05          # rad, on the starts' interior steps
+# The batched solver against the host reference driver: the backend parity
+# budget of tests/test_backend_parity.py.
+REF_XTOL = 1e-3
+# The batch split: arm7, 10 steps, B = 32 (block path, as the JAX
+# package's make_sharded_batch_solver); on several cards x within the JAX
+# test's 5e-4 (each card solves a smaller batch), on one card equal.
+SPLIT_STEPS, SPLIT_B, SPLIT_XTOL = 10, 32, 5e-4
+# The device phase 12 runs on (a CPU rehearsal of the phase points it at
+# the CPU).
+CARD = "cuda"
+
+
+def ifopt_pr2_problem(n_steps: int = IFOPT_STEPS):
+    """The PR2 planning problem through the ifopt component model: pr2ish
+    (8 DOF, 91 pairs), one ``NodesVariables`` node of 8 ``position``
+    variables a step within the joint limits, the start pinned at home by
+    equal bounds; cost ``SquaredCost(JointVelConstraint(0, coeffs 5))``;
+    constraints ``JointPosConstraint`` to ``pr2ish_goals(0, 1)[0]`` at the
+    last node and a ``ContinuousCollisionConstraint`` a gap (margin 0.025,
+    coeff 20, LVS 2, the ifopt default of 3 rows).  Returns (problem,
+    scene, goal, the straight-line init [n_steps, 8])."""
+    tree, scene = pr2ish(), pr2ish_scene()
+    goal = pr2ish_goals(0, 1)[0]
+    w = np.linspace(0.0, 1.0, n_steps)[:, None]
+    init = PR2ISH_HOME * (1.0 - w) + goal * w
+    lower = np.tile(tree.lower, n_steps)
+    upper = np.tile(tree.upper, n_steps)
+    lower[:8] = upper[:8] = PR2ISH_HOME
+    prob = ifopt.Problem()
+    nodes = []
+    for t in range(n_steps):
+        nd = ifopt.Node(f"step{t}")
+        nd.add_var("position", 8)
+        nodes.append(nd)
+    nv = prob.add_variable_set(ifopt.NodesVariables(
+        "trajectory", nodes, init.reshape(-1), lower, upper))
+    pos = [nv.node_var(t, "position") for t in range(n_steps)]
+    prob.add_cost_set(ifopt.SquaredCost(
+        ifopt.JointVelConstraint(np.zeros(8), pos, coeffs=5.0)))
+    prob.add_constraint_set(ifopt.JointPosConstraint(goal, [pos[-1]],
+                                                     name="goal"))
+    for t in range(n_steps - 1):
+        prob.add_constraint_set(ifopt.ContinuousCollisionConstraint(
+            scene, pos[t], pos[t + 1], margin=0.025, coeff=20.0,
+            lvs_substeps=2, max_num_cnt=3, name=f"collision{t}"))
+    return prob, scene, goal, init
+
+
+def ifopt_starts(init: np.ndarray, B: int, seed: int) -> np.ndarray:
+    """[B, n] starts: the straight line plus seeded normal noise of
+    IFOPT_NOISE rad on the interior steps."""
+    noise = IFOPT_NOISE * np.random.default_rng(seed).standard_normal(
+        (B, *init.shape))
+    noise[:, 0] = noise[:, -1] = 0.0
+    return (init[None] + noise).reshape(B, -1)
+
+
+def ifopt_outcome(label, scene, res, goal, B, n_steps):
+    """(converged, converged and swept-verified) lanes, printed with the
+    worst clearance, goal error and counts."""
+    if tuple(res.x.shape) != (B, n_steps * 8) or \
+            not bool(torch.isfinite(res.x).all()):
+        raise SystemExit(f"{label}: trajectories not finite or of the wrong "
+                         f"shape")
+    traj = res.x.reshape(B, n_steps, 8)
+    mins = swept_verify(scene, traj)
+    conv = res.status == SQPStatus.CONVERGED
+    n_conv, n_ver = int(conv.sum()), int((conv & (mins > 0)).sum())
+    g = torch.as_tensor(goal, dtype=traj.dtype, device=traj.device)
+    goal_err = (float((traj[conv, -1] - g).abs().max()) if n_conv
+                else float("nan"))
+    print(f"{label}: converged {n_conv}/{B}, converged and swept-verified "
+          f"{n_ver}/{B}, worst clearance {float(mins.min()):+.4f}, max goal "
+          f"error {goal_err:.2e}, mean SQP iterations "
+          f"{float(res.n_iter.float().mean()):.2f}, mean QP solves "
+          f"{float(res.n_qp_solves.float().mean()):.2f}, statuses "
+          f"{torch.bincount(res.status.cpu().long(), minlength=5).tolist()}")
+    return n_conv, n_ver
+
+
+def ifopt_paths(smi: str, sqp: SQPParams) -> tuple[dict, object, object]:
+    """(a): the ifopt problem once through ``Problem.solve()`` and on B
+    noisy starts through ``make_solver``.  Returns (kernel numbers, the
+    problem, the single solve's result)."""
+    dev = torch.device(CARD)
+    prob, scene, goal, init = ifopt_pr2_problem(IFOPT_STEPS)
+    nlp = prob.build()
+    n, m = nlp.n, num_qp_rows(nlp)
+    cs, smem = fd.cluster_plan(n, m)
+    print(f"ifopt: {IFOPT_STEPS} nodes, {len(nlp.term_sets)} term sets, n "
+          f"{n}, m {m}, dense kernel in clusters of {cs} ({smem} B of "
+          f"shared memory per block)")
+
+    fd.COUNTER.reset()
+    t0 = time.time()
+    single, values = prob.solve(sqp, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_conv, n_ver = ifopt_outcome(
+        "ifopt single (Problem.solve)", scene,
+        single._replace(**{f: v[None] for f, v in single._asdict().items()}),
+        goal, 1, IFOPT_STEPS)
+    print(f"ifopt single: status {SQPStatus.NAMES[int(single.status)]}, "
+          f"{int(single.n_iter)} SQP iterations, {int(single.n_qp_solves)} "
+          f"QP solves, {wall:.2f} s, {fd.COUNTER.launches} dense kernel "
+          f"launches; values by set: "
+          f"{ {k: v.shape for k, v in values.items()} }")
+    if n_ver != 1:
+        raise SystemExit("ifopt single: not converged or not free")
+
+    kw = dict(dtype=torch.float32, device=dev)
+    x0 = torch.as_tensor(ifopt_starts(init, IFOPT_B, 1), **kw)
+    lo, hi = (torch.as_tensor(b, **kw).expand(IFOPT_B, n)
+              for b in prob.bounds())
+    solver = make_solver(nlp, sqp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.COUNTER.reset()
+    t0 = time.time()
+    res = solver(x0, lo, hi, {})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fd.COUNTER.launches
+    n_conv, n_ver = ifopt_outcome("ifopt batch", scene, res, goal, IFOPT_B,
+                                  IFOPT_STEPS)
+    print(f"ifopt batch: {wall:.3f} s for {IFOPT_B} lanes -> "
+          f"{n_ver / wall:.2f} verified solves/s on {smi}; dense kernel "
+          f"launches {launches} (clusters of {cs}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches <= 0:
+        raise SystemExit("ifopt batch: the solve never launched the kernel")
+    if n_ver < IFOPT_MIN_VERIFIED:
+        raise SystemExit(f"ifopt batch: only {n_ver}/{IFOPT_B} lanes "
+                         f"converged and verified (< {IFOPT_MIN_VERIFIED})")
+    profile_solve("ifopt batch", lambda: solver(x0, lo, hi, {}),
+                  "admm_dense_", launches)
+    chunk = dense_on_first_qp("ifopt path's", first_dense_qp(
+        nlp, x0, lo, hi, sqp), x0, sqp.qp)
+    return ({"ifopt_launches": launches,
+             **{f"ifopt_{k}": v for k, v in chunk.items()}}, prob, single)
+
+
+def reference_path(prob, sqp: SQPParams, single) -> None:
+    """(b): the host reference driver on (a)'s problem, convexify on the
+    card, against (a)'s single solve."""
+    t0 = time.time()
+    ref = solve_reference(prob.build(), prob.initial_values(),
+                          *prob.bounds(), {}, sqp, device=CARD)
+    wall = time.time() - t0
+    dx = float(np.abs(ref.x - single.x.double().cpu().numpy()).max())
+    print(f"reference driver: status {SQPStatus.NAMES[ref.status]}, "
+          f"{ref.n_iter} SQP iterations, {ref.n_qp_solves} native QP "
+          f"solves, {wall:.2f} s; against the single solve (status "
+          f"{SQPStatus.NAMES[int(single.status)]}): max |dx| {dx:.3e}, "
+          f"tolerance {REF_XTOL:g}")
+    if ref.status != int(single.status) or not dx <= REF_XTOL:
+        raise SystemExit("reference driver: status or x differs from the "
+                         "batched solver's single solve")
+
+
+def split_paths(prob, sqp: SQPParams, inits, params):
+    """(c) the batch split over every visible card against the unsplit
+    solve; (d) a profiler trace and Timer around it.  Returns the split
+    solve's result."""
+    devices = data_parallel_mesh()
+    split = make_sharded_batch_solver(prob, devices, sqp)
+    whole = prob.make_solve(sqp, structured=True)(inits, params)
+    t0 = time.time()
+    res = split(inits, params)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    dx = float((res.x - whole.x).abs().max())
+    same = bool(torch.equal(res.status, whole.status))
+    print(f"batch split over {len(devices)} card(s) {devices}: {wall:.2f} "
+          f"s, statuses equal to the unsplit solve: {same}, max |dx| "
+          f"{dx:.3e}; summarize: {summarize(res)}")
+    exact = len(devices) == 1
+    if not same or not (torch.equal(res.x, whole.x) if exact
+                        else dx <= SPLIT_XTOL):
+        raise SystemExit("batch split: differs from the unsplit solve")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = str(Path(tmp, "trace"))
+        with trace(log_dir):
+            with Timer() as timer:
+                timer.observe(split(inits, params))
+        files = list(Path(log_dir).iterdir())
+        events = json.loads(files[0].read_text())["traceEvents"] \
+            if len(files) == 1 else []
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        print(f"profiling.trace: {len(files)} file(s), {len(events)} events, "
+              f"{kernels} CUDA kernel events; Timer {timer.elapsed:.3f} s")
+        if not kernels or not timer.elapsed > 0:
+            raise SystemExit("profiling.trace: no kernel events in the "
+                             "trace, or no time")
+    return res
+
+
+def utils_paths(prob, sqp: SQPParams, inits, params, res) -> None:
+    """(e) the failed-QP dump of a solve cut at one SQP iteration, and a
+    checkpoint round trip of (c)'s result."""
+    with tempfile.TemporaryDirectory() as tmp:
+        early = prob.make_solve(dataclasses.replace(sqp, max_iter=1))(
+            inits, params)
+        statuses = sorted(set(early.status.tolist()))
+        path = str(Path(tmp, "fail.npz"))
+        n_dumped = dump_failed_qps(prob.build(), early, params, path,
+                                   statuses=statuses)
+        with np.load(path) as blob:
+            lanes = blob["failed_lanes"]
+            fields = ("P", "q", "c0", "A_cost", "b_cost", "w_cost", "A_cnt",
+                      "b_cnt", "u_cnt", "x", "merit_coeffs")
+            keys_ok = all(f"lane{i}_{f}" in blob.files
+                          for i in lanes for f in (*fields, "l_cnt",
+                                                   "status"))
+            finite = all(np.isfinite(blob[f"lane{i}_{f}"]).all()
+                         for i in lanes for f in fields)
+            lower_ok = all(not np.isnan(blob[f"lane{i}_l_cnt"]).any()
+                           for i in lanes)
+        print(f"dump_failed_qps (max_iter 1, statuses "
+              f"{[SQPStatus.NAMES[s] for s in statuses]}): {n_dumped} lanes, "
+              f"keys {keys_ok}, finite {finite and lower_ok}")
+        if n_dumped < 1 or len(lanes) != n_dumped or not (
+                keys_ok and finite and lower_ok):
+            raise SystemExit("dump_failed_qps: lanes, keys or values wrong")
+
+        path = str(Path(tmp, "result.npz"))
+        save_result(path, res, params)
+        back, extra = load_result(path)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(res, back)) and \
+            torch.equal(extra["goal"], params["goal"].cpu())
+        print(f"checkpoint round trip: equal {same}")
+        if not same:
+            raise SystemExit("checkpoint: the loaded result differs")
+
+
+def phase_ifopt_host(smi: str) -> dict:
+    """Phase 12: the ifopt and host paths (see the module doc)."""
+    sqp = discrete_params()
+    t0 = time.time()
+    out, prob, single = ifopt_paths(smi, sqp)
+    print(f"phase 12 (a) ifopt: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    reference_path(prob, sqp, single)
+    print(f"phase 12 (b) reference driver: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    prob, _ = arm_table_problem(n_steps=SPLIT_STEPS, device=CARD)
+    inits, goals = arm_table_batch(3, SPLIT_B, SPLIT_STEPS, device=CARD)
+    res = split_paths(prob, sqp, inits, {"goal": goals})
+    utils_paths(prob, sqp, inits, {"goal": goals}, res)
+    print(f"phase 12 (c-e) split, trace, dump, checkpoint: "
+          f"{time.time() - t0:.1f} s")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1754,8 +2055,10 @@ def main() -> int:
     timed("unified narrowphase float64", phase_unified_f64)
     dense_k["collision_scene_launches"] = timed("collision scenes",
                                                 phase_collision_scenes)
+    dense_k.update(timed("ifopt and host paths", phase_ifopt_host, smi))
     dense_k["max_abs_err"] = max(dense_k["max_abs_err"],
-                                 dense_k["json_max_abs_err"])
+                                 dense_k["json_max_abs_err"],
+                                 dense_k["ifopt_max_abs_err"])
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [block, dense_k]}))
     print(json.dumps({"ok": True, "device": {

@@ -546,3 +546,88 @@ def test_sdf_query_on_the_card(cuda):
                                                 ref)]
     for g, r, e in zip(query(cuda, torch.float32), ref, own):
         assert float((g - r).abs().max()) <= 2 * float(e) + 1e-6
+
+
+def _ifopt_problem(name):
+    """Small ifopt problems on the port alone: the boxbot cast facade
+    problem (3 steps, the middle node off the obstacle's center) and the
+    PR2 planning problem of chip_smoke.py phase 12 at 4 steps."""
+    from trajopt_tpu_torch import ifopt
+    from trajopt_tpu_torch.collision.world import CollisionScene
+    from trajopt_tpu_torch.models.benchmarks import PR2ISH_HOME, pr2ish_goals
+    from trajopt_tpu_torch.models.robots import boxbot, pr2ish_scene
+
+    prob = ifopt.Problem()
+    if name == "boxbot":
+        scene = CollisionScene(boxbot())
+        scene.add_link_sphere("boxbot_link", 0.25)
+        scene.add_world_box("obstacle0", [0.5, 0.5, 0.5], [0.0, 0.0, 0.0])
+        n_steps, D = 3, 2
+        init = np.array([[-1.9, 0.0], [0.1, 0.05], [1.9, 0.0]])
+        lower, upper = -10.0, 10.0
+        kw = dict(margin=0.05, lvs_substeps=3, max_num_cnt=None)
+        ends = torch.tensor([-1.9, 0.0, 1.9, 0.0], dtype=torch.float64)
+        prob.add_constraint_set(ifopt.FunctionalConstraint(
+            4, "endpoints", lambda v: torch.cat(
+                [v["trajectory"][:2], v["trajectory"][-2:]])
+            - ends.to(v["trajectory"])))
+    else:
+        scene = pr2ish_scene()
+        n_steps, D = 4, 8
+        goal = pr2ish_goals(0, 1)[0]
+        w = np.linspace(0.0, 1.0, n_steps)[:, None]
+        init = PR2ISH_HOME * (1.0 - w) + goal * w
+        lower = np.tile(scene.tree.lower, n_steps)
+        upper = np.tile(scene.tree.upper, n_steps)
+        lower[:8] = upper[:8] = PR2ISH_HOME
+        kw = dict(margin=0.025, lvs_substeps=2, max_num_cnt=3)
+    nodes = []
+    for t in range(n_steps):
+        nd = ifopt.Node(f"step{t}")
+        nd.add_var("position", D)
+        nodes.append(nd)
+    nv = prob.add_variable_set(ifopt.NodesVariables(
+        "trajectory", nodes, init.reshape(-1), lower, upper))
+    pos = [nv.node_var(t, "position") for t in range(n_steps)]
+    prob.add_cost_set(ifopt.SquaredCost(
+        ifopt.JointVelConstraint(np.zeros(D), pos, coeffs=5.0)))
+    if name != "boxbot":
+        prob.add_constraint_set(ifopt.JointPosConstraint(goal, [pos[-1]]))
+    for t in range(n_steps - 1):
+        prob.add_constraint_set(ifopt.ContinuousCollisionConstraint(
+            scene, pos[t], pos[t + 1], coeff=20.0, name=f"collision{t}",
+            **kw))
+    return prob
+
+
+@pytest.mark.parametrize("name", ["boxbot", "pr2ish"])
+def test_ifopt_solve_on_the_card(cuda, monkeypatch, name):
+    """An ifopt problem through ``Problem.solve()`` in float64 on the card
+    (the dense chunk's plain version there) equals the CPU's solve: status
+    and counts equal, x within 1e-9."""
+    prob = _ifopt_problem(name)
+    with monkeypatch.context() as m:
+        m.setattr(fd, "chunk", _plain_dense_chunk)
+        card, card_x = prob.solve(dtype=torch.float64, device=cuda)
+    cpu, cpu_x = prob.solve(dtype=torch.float64, device="cpu")
+    for f in ("status", "n_iter", "n_qp_solves", "n_func_evals"):
+        assert int(getattr(card, f)) == int(getattr(cpu, f)), f
+    assert int(cpu.status) == SQPStatus.CONVERGED
+    np.testing.assert_allclose(card_x["trajectory"], cpu_x["trajectory"],
+                               rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["boxbot", "pr2ish"])
+def test_reference_driver_on_the_card(cuda, name):
+    """``solve_reference`` with convexify and evaluation on the card in
+    float64 (the C++ QP on the host) equals the CPU's, x within 1e-9."""
+    from trajopt_tpu_torch.sqp.reference_solver import solve_reference
+
+    prob = _ifopt_problem(name)
+    args = (prob.build(), prob.initial_values(), *prob.bounds(), {})
+    card = solve_reference(*args, device=cuda, dtype=torch.float64)
+    cpu = solve_reference(*args, device="cpu")
+    assert (card.status, card.n_iter, card.n_qp_solves) == \
+        (cpu.status, cpu.n_iter, cpu.n_qp_solves)
+    assert cpu.status == SQPStatus.CONVERGED
+    np.testing.assert_allclose(card.x, cpu.x, rtol=0, atol=1e-9)

@@ -12,8 +12,8 @@ the JAX package, float64 on the CPU.
 * a 10-step ``arm_table.json`` solve: equal status and counts, x to 1e-6;
 * ``check_trajectory``: equal ``ok`` and ``dmin`` to 1e-9, one trajectory
   and a batch;
-* ``convex_solver: BPMPD`` takes the IPM, at parity; ``native`` raises
-  ``NotImplementedError``;
+* ``convex_solver: BPMPD`` takes the IPM, at parity; ``native`` the host
+  reference driver (at parity in ``test_torch_reference_json.py``);
 * ``log_results`` writes the CSV logs; both plotting functions and the
   plotter callbacks write PNGs under the Agg backend;
 * two ``make_mpc_step`` cycles with goal drift and ``reinit_goal_key``:
@@ -450,11 +450,22 @@ def test_bpmpd_takes_the_ipm_at_parity():
 
 
 def test_native_backend_raises():
+    """``convex_solver: native`` takes the host reference driver, as in the
+    JAX package (it raised while the driver was not ported): the JAX test's
+    check, the solve clears the constraint's 0.2 margin; an unknown backend
+    still raises."""
     doc = copy.deepcopy(SIMPLE_COLLISION_DOC)
     doc["basic_info"]["convex_solver"] = "native"
     assert _construct("jax", "simple_collision", doc).backend == "native"
-    with pytest.raises(NotImplementedError, match="native"):
-        _construct("torch", "simple_collision", doc)
+    tp = _construct("torch", "simple_collision", doc)
+    assert tp.backend == "native"
+    res = tp.solve()                  # parity: test_torch_reference_json.py
+    assert res.status == 1
+    scene = _env("torch", "spherebot")[1].scene
+    d = scene.distances(scene.tree.fk(torch.as_tensor(res.x)))
+    assert float(d.min()) >= 0.2 - 1e-3
+    with pytest.raises(ValueError, match="backend"):
+        tjson.JsonProblem(tp.prob, tp.init_traj, tp.sqp, backend="osqp")
 
 
 def test_yaml_file_and_term_registry(tmp_path):

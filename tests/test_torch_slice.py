@@ -302,7 +302,12 @@ def test_import_leaves_jax_out():
         "       'terms.cartesian', 'terms.time', 'terms.user',\n"
         "       'kinematics.ik', 'utils.config', 'plotting',\n"
         "       'collision.convex', 'collision.sdf_grid',\n"
-        "       'collision.decompose', 'kinematics.srdf'}\n"
+        "       'collision.decompose', 'kinematics.srdf', 'ifopt',\n"
+        "       'ifopt.constraints', 'ifopt.collision', 'qp.native',\n"
+        "       'sqp.reference_solver', 'parallel', 'parallel.mesh',\n"
+        "       'utils.cache', 'utils.checkpoint', 'utils.debug',\n"
+        "       'utils.finite_diff', 'utils.joints', 'utils.logging',\n"
+        "       'utils.profiling'}\n"
         "assert {'trajopt_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'trajopt_tpu' or "

@@ -4,7 +4,9 @@ Each kernel is one ``.cu`` file with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library at first use (one build per
 source and flag hash, into ``trajopt_tpu_torch/_build/``) and loaded with
 ``ctypes`` by its wrapper module (``qp/fused_block.py``,
-``qp/fused_dense.py``).  Nothing here runs at import time.
+``qp/fused_dense.py``).  The host C++ QP (``csrc/qp_admm.cpp``,
+``qp/native.py``) is built the same way with ``g++``.  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -44,22 +46,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_library(source: Path, verbose: bool = False) -> Path:
-    """Compile ``source`` (once per source and flag hash) and return the
-    library path.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints
-    its report (registers, shared memory, spills)."""
+def build_library(source: Path, verbose: bool = False,
+                  compiler: str | None = None,
+                  flags: list[str] | None = None) -> Path:
+    """Compile ``source`` (once per source, compiler and flag hash) and
+    return the library path: with ``nvcc`` and :data:`NVCC_FLAGS` unless
+    ``compiler`` and ``flags`` name others (the host C++ QP takes ``g++``).
+    ``verbose`` rebuilds with ``-Xptxas -v`` and prints its report
+    (registers, shared memory, spills)."""
+    flags = NVCC_FLAGS if flags is None else flags
+    name = "nvcc" if compiler is None else compiler
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join([name, *flags]).encode()
+                         ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(source)]
+    cmd = [compiler or _nvcc(), *flags,
+           *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp),
+           str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} "
+        raise RuntimeError(f"{name} failed on {source.name} "
                            f"({res.returncode}):\n{res.stderr}")
     if verbose:
         print(res.stderr.strip())

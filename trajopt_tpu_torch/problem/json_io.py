@@ -23,9 +23,9 @@ of one lane, and ``jp.prob.make_solve(jp.sqp)(inits)`` solves a batch.
 ``convex_solver`` names: ``jax`` (the documents' name for the on-device
 ADMM QP) and the reference's first-order ModelType names (AUTO_SOLVER,
 OSQP, QPOASES) take the dense ADMM; ``ipm`` and the interior-point names
-(BPMPD, GUROBI) the IPM QP; ``native`` (the host C++ QP of the JAX
-package) is not ported and raises ``NotImplementedError``.  PyYAML is
-imported only to read a ``.yaml`` / ``.yml`` file.
+(BPMPD, GUROBI) the IPM QP; ``native`` the host reference driver with
+the C++ QP (``sqp/reference_solver.py``, ``qp/native.py``), as one lane.
+PyYAML is imported only to read a ``.yaml`` / ``.yml`` file.
 """
 
 from __future__ import annotations
@@ -84,12 +84,7 @@ class JsonProblem:
     def __init__(self, prob: TrajOptProblem, init_traj, sqp: SQPParams,
                  backend: str = "jax", log_results: bool = False,
                  log_dir: str | None = None):
-        if backend == "native":
-            raise NotImplementedError(
-                "convex_solver 'native' (the host C++ QP and reference "
-                "solver, qp/native.py + sqp/reference_solver.py) is not "
-                "ported: ROADMAP Queue 1, item 'QP auxiliaries'")
-        if backend != "jax":
+        if backend not in ("jax", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         self.prob = prob
         self.init_traj = init_traj
@@ -100,19 +95,32 @@ class JsonProblem:
 
     def solve(self, params: Any = None):
         """Solve the document's init as one lane on the problem's device;
-        returns the batch-of-one ``SQPResult``.  With ``log_results`` the
-        CSV logger runs as the per-iteration callback and writes
-        ``trajopt_solver.log`` / ``trajopt_vars.log`` to ``log_dir``."""
+        returns the batch-of-one ``SQPResult``, or with ``backend ==
+        "native"`` the host reference driver's ``RefResult`` (convexify on
+        the problem's device, the C++ QP on the host; the reference's
+        selectable-backend path, solver_interface.cpp:255-292).  With
+        ``log_results`` the CSV logger runs as the per-iteration callback
+        of the batched solver and writes ``trajopt_solver.log`` /
+        ``trajopt_vars.log`` to ``log_dir``."""
         callback = logger = None
         if self.log_results:
             from trajopt_tpu_torch.callbacks import (CsvLogger,
                                                      make_iteration_callback)
             logger = CsvLogger()
             callback = make_iteration_callback(logger)
-        params = {k: torch.as_tensor(v)[None] for k, v in
-                  (params or {}).items()}
-        res = self.prob.make_solve(self.sqp, callback=callback)(
-            self.init_traj[None], params)
+        if self.backend == "native":
+            from trajopt_tpu_torch.sqp.reference_solver import \
+                solve_reference
+            x0 = torch.as_tensor(self.init_traj).reshape(1, -1)
+            lb, ub = self.prob.bounds(x0)
+            res = solve_reference(self.prob.build(), x0[0], lb[0], ub[0],
+                                  params or {}, self.sqp,
+                                  device=self.prob.device)
+        else:
+            params = {k: torch.as_tensor(v)[None] for k, v in
+                      (params or {}).items()}
+            res = self.prob.make_solve(self.sqp, callback=callback)(
+                self.init_traj[None], params)
         if logger is not None:
             os.makedirs(self.log_dir, exist_ok=True)
             logger.write_solver_log(os.path.join(self.log_dir,

@@ -8,11 +8,19 @@ repeats), keeps the new start state pinned, and re-solves warm-started.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
                                                   interpolated_init)
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+from trajopt_tpu_torch.sqp.solver import SQPResult
+
+
+class MpcState(NamedTuple):
+    traj: torch.Tensor   # [B, n_steps, n_dof_total] current plans
+    last: SQPResult | None
 
 
 def make_mpc_step(prob: TrajOptProblem, sqp: SQPParams = SQPParams(),

@@ -349,3 +349,15 @@ def solve_qp(qp: QPData, x0, z0=None, y0=None,
         y=st.y * (sc.E / sc.c_obj[:, None]), iters=st.iters,
         pri_res=st.pri, dua_res=st.dua, converged=st.converged)
 
+
+
+def qp_objective(qp: QPData, x: torch.Tensor) -> torch.Tensor:
+    """[B] full prox-form objective 0.5 x'Px + q'x + sum_i c_i dist(A_i x,
+    [l_i, u_i]) of a batch (hard rows, c = inf, contribute nothing)."""
+    z = (qp.A @ x[..., None])[..., 0]
+    zero = z.new_zeros(())
+    viol = torch.maximum(z - qp.u, zero) + torch.maximum(qp.l - z, zero)
+    soft = torch.where(torch.isinf(qp.c), torch.zeros_like(viol),
+                       qp.c * viol)
+    return 0.5 * (x * (qp.P @ x[..., None])[..., 0]).sum(-1) \
+        + (qp.q * x).sum(-1) + soft.sum(-1)

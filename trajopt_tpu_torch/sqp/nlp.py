@@ -64,7 +64,7 @@ class Consts:
     boolean arrays (indices, masks) in their own."""
 
     def __init__(self, **arrays):
-        self._np = {k: np.asarray(v) for k, v in arrays.items()}
+        self._np = {k: np.array(v) for k, v in arrays.items()}
         self._cache = {}
 
     def get(self, name, like: torch.Tensor):
@@ -214,6 +214,20 @@ def cnt_group_structure(nlp: Nlp) -> list[tuple[TermSet, slice, slice]]:
         row0 += t.n_rows
         g0 += ng
     return out
+
+
+def cnt_group_names(nlp: Nlp) -> list[str]:
+    """Diagnostic name per merit unit: the set's name, suffixed by the
+    group index for multi-group sets (the reference's per-step constraint
+    names)."""
+    names = []
+    for t in nlp.cnt_sets:
+        ng = term_groups(t)
+        if ng == 1:
+            names.append(t.name)
+        else:
+            names.extend(f"{t.name}[{g}]" for g in range(ng))
+    return names
 
 
 def _group_reduce(viol_rows: torch.Tensor, t: TermSet) -> torch.Tensor:

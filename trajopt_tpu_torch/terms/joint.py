@@ -157,3 +157,11 @@ def joint_pos(n_steps, n_dof, is_cost=True, **kw) -> TermSet:
 
 def joint_vel(n_steps, n_dof, is_cost=True, **kw) -> TermSet:
     return joint_term("vel", is_cost, n_steps, n_dof, **kw)
+
+
+def joint_acc(n_steps, n_dof, is_cost=True, **kw) -> TermSet:
+    return joint_term("acc", is_cost, n_steps, n_dof, **kw)
+
+
+def joint_jerk(n_steps, n_dof, is_cost=True, **kw) -> TermSet:
+    return joint_term("jerk", is_cost, n_steps, n_dof, **kw)

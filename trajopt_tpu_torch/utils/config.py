@@ -59,5 +59,5 @@ def env_log_level(default: str = "INFO") -> str:
 def env_qp_backend(default: str = "jax") -> str:
     """TRAJOPT_CONVEX_SOLVER: ``'jax'`` (the on-device ADMM; the name is the
     problem documents' own), ``'ipm'`` (the interior-point QP) or
-    ``'native'`` (the host C++ QP, not ported)."""
+    ``'native'`` (the host reference driver with the C++ QP)."""
     return os.environ.get("TRAJOPT_CONVEX_SOLVER", default).lower()
