@@ -89,6 +89,19 @@ Phases, each of which must pass:
    around (c)'s solve (a Chrome trace with kernel events) and ``Timer``;
    (e) ``dump_failed_qps`` on a solve cut at one SQP iteration and a
    checkpoint round trip.
+13. captured against eager: the flagship, the hard mix and arm7 dense,
+   each solved on one seeded batch under ``utils.aot_cache.eager()`` and
+   with the solver's regions captured as CUDA graphs, through the checks
+   of phase 6 (wall time, verified solves/s, statuses, the chunk kernel's
+   launches, captures and replays, the host time of each SQP pass, a
+   profiled repeat's idle share and layer split); statuses may differ on
+   at most 1 % of the flagship and arm7 lanes and converged lanes' x by
+   1e-3 (the hard mix is held to its verified limit); then phase 5's small
+   references captured in float64 against the CPU, to 1e-9.
+
+Phases 6-12 run captured (the solver captures on the card); each measured
+solve follows a warm-up on the same batch, which makes its captures, and
+prints the captures and replays it made itself.
 
 Phase 5 also holds, card (float32) against CPU: a borderline-goal pr2ish
 solve that escalates its penalties, with and without the saturated-dual
@@ -174,6 +187,7 @@ from trajopt_tpu_torch.sqp.solver import (banded_qp, block_qp, build_qp,
                                           num_qp_rows)
 from trajopt_tpu_torch.terms.collision import collision_term
 from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
+from trajopt_tpu_torch.utils import aot_cache
 from trajopt_tpu_torch.utils.checkpoint import load_result, save_result
 from trajopt_tpu_torch.utils.debug import dump_failed_qps
 from trajopt_tpu_torch.utils.profiling import Timer, trace
@@ -737,8 +751,9 @@ def small_qp_step(dev) -> torch.Tensor:
     return solve_qp_block_prepared(prep, lb, ub, x, cfg=cfg).x
 
 
-def small_solve(path: str, dev, perturb: int | None = None):
-    """A whole 10-step solve on 3 lanes in float32 on ``dev`` -- the inputs
+def small_solve(path: str, dev, perturb: int | None = None,
+                dtype=torch.float32):
+    """A whole 10-step solve on 3 lanes in ``dtype`` on ``dev`` -- the inputs
     of the CPU tests that hold the port's float32 solves against the JAX
     package's: ``"pr2ish"`` (flagship settings, LVS 2, block path),
     ``"hard"`` and ``"hard rescale"`` (the same on borderline goals, the
@@ -763,8 +778,7 @@ def small_solve(path: str, dev, perturb: int | None = None):
         if path == "arm7 ipm":
             params = dataclasses.replace(params, qp_algorithm="ipm")
         solve = make_solver(prob.build(), params)
-        inits, goals = arm_table_batch(1, 3, 10, dtype=torch.float32,
-                                       device=dev)
+        inits, goals = arm_table_batch(1, 3, 10, dtype=dtype, device=dev)
     else:
         prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2,
                                        device=dev)
@@ -775,7 +789,7 @@ def small_solve(path: str, dev, perturb: int | None = None):
         solve = make_solver(prob.build(), params, structured=True)
         hard = path != "pr2ish"
         inits, goals = pr2ish_table_batch(
-            HARD_SMALL_SEED if hard else 0, 3, 10, dtype=torch.float32,
+            HARD_SMALL_SEED if hard else 0, 3, 10, dtype=dtype,
             device=dev, hard_frac=1.0 if hard else 0.0)
     x0 = inits.reshape(3, -1)
     if perturb is not None:
@@ -1048,8 +1062,8 @@ def hold_json_references():
 # factorization; per SQP step on the block path, per QP inside "sqp.qp"
 # on the dense path), the QP solves, and the model and exact evaluations
 # of the trust-region test.
-LAYERS = ("sqp.convexify", "qp.prepare", "sqp.qp", "sqp.evaluate",
-          "collision.convex")
+LAYERS = ("sqp.init", "sqp.convexify", "qp.prepare", "sqp.qp",
+          "sqp.evaluate", "collision.convex")
 
 
 class Trace:
@@ -1057,24 +1071,40 @@ class Trace:
     event tree (which takes tens of seconds on a solve's trace): the
     device spans (kernels and copies; the ranges' own device annotations
     left out), the solver's ranges on the host, and for each device span
-    the host start of the op that launched it (its linked correlation)."""
+    the host start of the op that launched it (its linked correlation).
+
+    The kernels of a CUDA graph replay are traced one by one, but their
+    linked correlation names no host op; their own correlation id is
+    their ``cudaGraphLaunch`` call's, whose host start stands for their
+    launch (``graph_spans`` counts them)."""
 
     def __init__(self, prof):
         cuda = torch.autograd.DeviceType.CUDA
         self.ranges = {name: [] for name in LAYERS}
         self.spans = []                 # (name, start, end, linked id)
         starts = {}                     # correlation id -> host start
+        own = []                        # each span's own correlation id
+        graph_at = {}                   # cudaGraphLaunch id -> host start
         for e in prof.profiler.kineto_results.events():
             name = e.name()
             if e.device_type() == cuda:
                 if name not in self.ranges:
                     self.spans.append((name, e.start_ns(), e.end_ns(),
                                        e.linked_correlation_id()))
+                    own.append(e.correlation_id())
                 continue
             if name in self.ranges:
                 self.ranges[name].append((e.start_ns(), e.end_ns()))
+            if name.startswith("cudaGraphLaunch"):
+                graph_at[e.correlation_id()] = e.start_ns()
             starts.setdefault(e.correlation_id(), e.start_ns())
         self.launch = [starts.get(c) for _, _, _, c in self.spans]
+        self.replays_traced = len(graph_at)
+        self.graph_spans = 0
+        for k, c in enumerate(own):
+            if c in graph_at:
+                self.launch[k] = graph_at[c]
+                self.graph_spans += 1
 
     def inside(self, name: str) -> list[int]:
         """Indices of the device spans launched inside range ``name``."""
@@ -1190,33 +1220,42 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
                n_dof: int, counter, kernel: str, smi: str,
                min_verified: int | None, profile: bool = True,
                n_hard: int = 0, timed_solve=None, after=None) -> int:
-    """A warm-up solve, then the measured solve of ``B`` seeded lanes with
-    the kernel's launch count set to 0 just before and read just after;
+    """A warm-up solve of the measured batch (so that it meets every lane
+    bucket the measured solve captures; the captures it makes are
+    printed), then the measured solve of ``B`` seeded lanes with the
+    kernel's launch count and ``aot_cache.STATS`` set to 0 just before
+    and read just after;
     the independent swept check of every lane; with ``profile`` a
     profiled repeat for the device's idle share, the layer split, its top
     kernels and the in-path time of the chunk kernel ``kernel``.  With ``n_hard`` the
     status and iteration histograms and the first ``n_hard`` lanes'
     counts; with ``timed_solve`` (the same solve made with a
-    ``pass_timer`` callback, and its list) a repeat that prints the host
-    time of each SQP pass; with ``after`` a call ``after(res)`` on the
-    measured solve's result before the repeats.
+    ``pass_timer`` callback, and its list) a warm-up of it (its own
+    captures) and a repeat that prints the host time of each SQP pass;
+    with ``after`` a call ``after(res, stats)`` on
+    the measured solve's result and its (captures, capture seconds,
+    replays) before the repeats.
     Fails below ``min_verified`` converged and swept-verified lanes or
     when the kernel never launched.  Returns the launch count."""
-    inits, goals = batch(0, B, n_steps)
+    inits, goals = batch(1, B, n_steps)
+    aot_cache.STATS.reset()
     t0 = time.time()
     solve(inits, {"goal": goals})
     torch.cuda.synchronize()
-    print(f"{label}: warm-up solve {time.time() - t0:.2f} s")
+    print(f"{label}: warm-up solve {time.time() - t0:.2f} s "
+          f"({aot_cache.STATS})")
 
-    inits, goals = batch(1, B, n_steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counter.reset()
+    aot_cache.STATS.reset()
     t0 = time.time()
     res = solve(inits, {"goal": goals})
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = counter.launches
+    stats = (aot_cache.STATS.captures, aot_cache.STATS.capture_s,
+             aot_cache.STATS.replays)
 
     if tuple(res.x.shape) != (B, n_steps * n_dof) or \
             not bool(torch.isfinite(res.x).all()):
@@ -1238,7 +1277,8 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
     print(f"{label}: {wall:.3f} s for {B} lanes -> {n_ver / wall:.2f} "
           f"verified solves/s on {smi}; kernel launches {launches}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB")
+          f"GiB ({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); "
+          f"captures {stats[0]} ({stats[1]:.3f} s), replays {stats[2]}")
     if n_hard:
         print_outcome(label, res, verified, n_hard)
     if launches <= 0:
@@ -1247,9 +1287,10 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
         raise SystemExit(f"{label}: only {n_ver}/{B} lanes converged and "
                          f"verified (< {min_verified})")
     if after is not None:
-        after(res)
+        after(res, stats)
     if timed_solve is not None:
         tsolve, passes = timed_solve
+        tsolve(inits, {"goal": goals})      # its own captures
         passes.clear()
         t0 = time.time()
         tsolve(inits, {"goal": goals})
@@ -1270,14 +1311,24 @@ def profile_solve(label: str, run, kernel: str, launches: int) -> None:
     solve."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
+    replays = aot_cache.STATS.replays
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.time()
         run()
         torch.cuda.synchronize()
         pwall = time.time() - t0
+    replays = aot_cache.STATS.replays - replays
     t0 = time.time()
     trace = Trace(prof)
     share = trace.busy_share(pwall)
+    print(f"{label}: the profiled solve replayed {replays} captured "
+          f"regions ({trace.replays_traced} cudaGraphLaunch calls traced); "
+          f"{trace.graph_spans} of {len(trace.spans)} traced device spans "
+          f"launched by them")
+    if replays and not trace.graph_spans:
+        print(f"{label}: the replayed kernels could not be attributed to "
+              f"their launches: the layer split below leaves the regions "
+              f"out (the idle share counts every traced span)")
     if share is None:
         print(f"{label}: device idle share not measured (no device events "
               f"traced)")
@@ -1585,7 +1636,7 @@ def phase_unified(smi: str) -> int:
     prob, uscene = unified_problem()
     _, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
 
-    def against_primitive(res):
+    def against_primitive(res, stats):
         traj = res.x.reshape(B, 30, 8)
         fr = torch.linspace(0.0, 1.0, 3, dtype=traj.dtype,
                             device=traj.device)
@@ -2026,6 +2077,141 @@ def phase_ifopt_host(smi: str) -> dict:
     return out
 
 
+# Phase 13: captured against eager.  Float32 solves of one batch sum in
+# another order when a region runs at another lane bucket (batched GEMM
+# shapes), so the two runs are held to statuses on all but 1 % of the
+# lanes and converged lanes' x within 1e-3, not to bit equality.  Float64
+# small references: captured card against CPU to 1e-9.
+CAPTURE_STATUS_FRAC = 0.01
+CAPTURE_XTOL = 1e-3
+F64_XTOL = 1e-9
+
+
+@contextlib.contextmanager
+def plain_chunks():
+    """Within the block both chunk wrappers run their plain versions on
+    any device (and count no launch): float64 on the card."""
+    def block(*args, active=None, **kw):
+        state, stats = fb.chunk_plain(*args, **kw)
+        if active is None:
+            return state, stats
+        state = tuple(torch.where(active[:, None], new, old)
+                      for new, old in zip(state, args[15:]))
+        return state, type(stats)(*(torch.where(active, v, torch.nan)
+                                    for v in stats))
+
+    saved = fb.chunk
+    fb.chunk = block
+    try:
+        with plain_dense_chunk():
+            yield
+    finally:
+        fb.chunk = saved
+
+
+def captured_f64_references() -> None:
+    """Phase 5's small references in float64, captured on the card (plain
+    chunks) against the CPU: equal status and counts, x within F64_XTOL."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    f64 = torch.float64
+    cases = [(p, lambda dev, p=p: small_solve(p, dev, dtype=f64))
+             for p in ("pr2ish", "hard", "hard rescale", "arm7", "arm7 ipm")]
+    cases += [(p, lambda dev, p=p: small_json_solve(p, dev, dtype=f64))
+              for p in ("arm_table.json", "reach")]
+    names = ("status", "SQP iterations", "QP solves")
+    for path, run in cases:
+        aot_cache.STATS.reset()
+        with plain_chunks():
+            card = run(cuda)
+        replays = aot_cache.STATS.replays
+        ref = run(cpu)
+        dx = float((card[3] - ref[3]).abs().max())
+        print(f"captured float64 {path}: card vs CPU " + ", ".join(
+            f"{n} {g.tolist()} vs {c.tolist()}"
+            for n, g, c in zip(names, card, ref))
+            + f"; max |dx| {dx:.3e} (tolerance {F64_XTOL:.0e}); replays "
+            f"{replays}")
+        if replays == 0:
+            raise SystemExit(f"captured float64 {path}: nothing replayed")
+        if not (all(torch.equal(g, c) for g, c in zip(card[:3], ref[:3]))
+                and dx <= F64_XTOL):
+            raise SystemExit(f"captured float64 {path}: card and CPU differ")
+
+
+def compare_runs(label: str, eager, captured, B: int, hold: bool) -> None:
+    """Statuses and converged lanes' x of one batch, eager against
+    captured; every lane that differs is printed.  With ``hold`` fails
+    when statuses differ on more than CAPTURE_STATUS_FRAC of the lanes or
+    a lane converged in both differs by more than CAPTURE_XTOL."""
+    st_e, st_c = eager.status.cpu(), captured.status.cpu()
+    both = (st_e == SQPStatus.CONVERGED) & (st_c == SQPStatus.CONVERGED)
+    dx = (eager.x - captured.x).abs().amax(-1).cpu()
+    moved = torch.nonzero((st_e != st_c) | (both & (dx > CAPTURE_XTOL)))
+    n_status = int((st_e != st_c).sum())
+    print(f"{label}: captured vs eager: statuses differ on {n_status}/{B} "
+          f"lanes; converged lanes' max |dx| "
+          f"{float(dx[both].max()) if bool(both.any()) else 0.0:.3e} "
+          f"(tolerance {CAPTURE_XTOL:.0e}); SQP iterations eager "
+          f"{float(eager.n_iter.float().mean()):.2f}, captured "
+          f"{float(captured.n_iter.float().mean()):.2f}")
+    for i in moved[:, 0].tolist():
+        print(f"{label}: lane {i}: status eager "
+              f"{SQPStatus.NAMES[int(st_e[i])]}, captured "
+              f"{SQPStatus.NAMES[int(st_c[i])]}; SQP iterations "
+              f"{int(eager.n_iter[i])} / {int(captured.n_iter[i])}; |dx| "
+              f"{float(dx[i]):.3e}")
+    if hold and n_status > CAPTURE_STATUS_FRAC * B:
+        raise SystemExit(f"{label}: statuses differ on {n_status}/{B} lanes")
+    if hold and bool((dx[both] > CAPTURE_XTOL).any()):
+        raise SystemExit(f"{label}: converged lanes' x differ by more than "
+                         f"{CAPTURE_XTOL}")
+
+
+def phase_captured(smi: str) -> None:
+    """Phase 13: the flagship, the hard mix and arm7 dense, each solved on
+    one seeded batch under ``aot_cache.eager()`` and captured (wall time,
+    verified solves/s, statuses, launches, capture counts, host ms a pass,
+    idle share and layer split), held against each other; then phase 5's
+    small references captured in float64 against the CPU."""
+    prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
+    arm, arm_scene = arm_table_problem(n_steps=ARM_STEPS)
+    paths = (
+        ("flagship", prob, scene, flagship_params(), True, pr2ish_table_batch,
+         B, 30, 8, fb.COUNTER, "admm_block_chunk_kernel", 0, True),
+        ("hard mix", prob, scene, flagship_params(), True, hard_batch, B, 30,
+         8, fb.COUNTER, "admm_block_chunk_kernel",
+         int(np.ceil(HARD_FRAC * B)), False),
+        ("arm7 dense", arm, arm_scene, discrete_params(), False,
+         arm_table_batch, ARM_B, ARM_STEPS, 7, fd.COUNTER, "admm_dense_", 0,
+         True))
+    for (label, pb, sc, params, structured, batch, nb, steps, dof, counter,
+         kernel, n_hard, hold) in paths:
+        runs = {}
+        for mode in ("eager", "captured"):
+            cb, passes = pass_timer()
+            out = []
+            with (aot_cache.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                drive_path(f"{label} {mode}",
+                           pb.make_solve(params, structured=structured),
+                           sc, batch, nb, steps, dof, counter, kernel, smi,
+                           MIN_VERIFIED if nb == B else ARM_MIN_VERIFIED,
+                           n_hard=n_hard,
+                           timed_solve=(pb.make_solve(
+                               params, callback=cb, structured=structured),
+                               passes),
+                           after=lambda res, stats: out.append((res, stats)))
+            res, (captures, _, replays) = out[0]
+            if mode == "eager" and replays:
+                raise SystemExit(f"{label}: {replays} replays under eager()")
+            if mode == "captured" and not replays:
+                raise SystemExit(f"{label}: the captured solve replayed "
+                                 f"nothing")
+            runs[mode] = res
+        compare_runs(label, runs["eager"], runs["captured"], nb, hold)
+    captured_f64_references()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2056,6 +2242,7 @@ def main() -> int:
     dense_k["collision_scene_launches"] = timed("collision scenes",
                                                 phase_collision_scenes)
     dense_k.update(timed("ifopt and host paths", phase_ifopt_host, smi))
+    timed("captured against eager", phase_captured, smi)
     dense_k["max_abs_err"] = max(dense_k["max_abs_err"],
                                  dense_k["json_max_abs_err"],
                                  dense_k["ifopt_max_abs_err"])

@@ -24,6 +24,7 @@ from trajopt_tpu_torch.qp import fused_dense as fd
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse
 from trajopt_tpu_torch.qp.admm import ADMMConfig
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+from trajopt_tpu_torch.utils import aot_cache
 
 pytestmark = pytest.mark.cuda
 
@@ -548,10 +549,11 @@ def test_sdf_query_on_the_card(cuda):
         assert float((g - r).abs().max()) <= 2 * float(e) + 1e-6
 
 
-def _ifopt_problem(name):
+def _ifopt_problem(name, pr2_steps=4):
     """Small ifopt problems on the port alone: the boxbot cast facade
     problem (3 steps, the middle node off the obstacle's center) and the
-    PR2 planning problem of chip_smoke.py phase 12 at 4 steps."""
+    PR2 planning problem of chip_smoke.py phase 12 at ``pr2_steps``
+    steps."""
     from trajopt_tpu_torch import ifopt
     from trajopt_tpu_torch.collision.world import CollisionScene
     from trajopt_tpu_torch.models.benchmarks import PR2ISH_HOME, pr2ish_goals
@@ -573,7 +575,7 @@ def _ifopt_problem(name):
             - ends.to(v["trajectory"])))
     else:
         scene = pr2ish_scene()
-        n_steps, D = 4, 8
+        n_steps, D = pr2_steps, 8
         goal = pr2ish_goals(0, 1)[0]
         w = np.linspace(0.0, 1.0, n_steps)[:, None]
         init = PR2ISH_HOME * (1.0 - w) + goal * w
@@ -631,3 +633,123 @@ def test_reference_driver_on_the_card(cuda, name):
         (cpu.status, cpu.n_iter, cpu.n_qp_solves)
     assert cpu.status == SQPStatus.CONVERGED
     np.testing.assert_allclose(card.x, cpu.x, rtol=0, atol=1e-9)
+
+
+def test_captured_solve_equals_eager_on_the_card(cuda, monkeypatch):
+    """A float64 10-step flagship solve on 5 lanes (the chunk's plain
+    version on the card) with its regions captured equals the same solve
+    under ``aot_cache.eager()`` to 1e-9: equal counts, replays in the
+    captured run and none in the eager one."""
+    monkeypatch.setattr(fb, "chunk", _plain_chunk)
+    prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2)
+    qp = ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
+                    check_every=150, adaptive_rho=False, rho_dual_scale=0.1,
+                    ns_refresh=True, ns_tol=1e-4, ns_power_iters=4)
+    solve = prob.make_solve(SQPParams(max_restarts=1, qp=qp),
+                            structured=True)
+    inits, goals = pr2ish_table_batch(0, 5, 10, dtype=torch.float64,
+                                      hard_frac=0.4)
+    aot_cache.STATS.reset()
+    with aot_cache.eager():
+        eager = solve(inits, {"goal": goals})
+    assert aot_cache.STATS.replays == aot_cache.STATS.captures == 0
+    captured = solve(inits, {"goal": goals})
+    assert aot_cache.STATS.replays > 0 and aot_cache.STATS.captures > 0
+    for f in ("status", "n_iter", "n_qp_solves", "n_func_evals"):
+        assert torch.equal(getattr(captured, f), getattr(eager, f)), f
+    assert float((captured.x - eager.x).abs().max()) <= 1e-9
+
+
+def test_capture_raises_on_a_host_sync(cuda):
+    """A region that reads a value on the host (``.item()``) fails at its
+    capture with an error; it does not carry on eagerly.  In a child
+    process, so that the failed capture leaves this one's device alone."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from trajopt_tpu_torch.utils import aot_cache\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "f = aot_cache.cached_export(lambda v: v * v.sum().item(), (x,),\n"
+        "                            'sync', memo={})\n"
+        "try:\n"
+        "    f(x)\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', aot_cache.STATS.replays, type(e).__name__)\n"
+        "else:\n"
+        "    print('RAN')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert "RAISED 0" in out.stdout, out.stdout + out.stderr
+
+
+def test_captured_ifopt_solve_equals_cpu(cuda, monkeypatch):
+    """The ifopt PR2 problem (8 steps) through ``Problem.solve()`` in
+    float64 on the card, its regions captured (the dense chunk's plain
+    version), equals the CPU's: status and counts equal, x within 1e-9."""
+    prob = _ifopt_problem("pr2ish", pr2_steps=8)
+    aot_cache.STATS.reset()
+    with monkeypatch.context() as m:
+        m.setattr(fd, "chunk", _plain_dense_chunk)
+        card, card_x = prob.solve(dtype=torch.float64, device=cuda)
+    assert aot_cache.STATS.replays > 0
+    cpu, cpu_x = prob.solve(dtype=torch.float64, device="cpu")
+    for f in ("status", "n_iter", "n_qp_solves", "n_func_evals"):
+        assert int(getattr(card, f)) == int(getattr(cpu, f)), f
+    np.testing.assert_allclose(card_x["trajectory"], cpu_x["trajectory"],
+                               rtol=0, atol=1e-9)
+
+
+def test_user_functions_run_eagerly_on_the_card(cuda, monkeypatch):
+    """The boxbot ifopt problem, whose user constraint copies a host
+    constant to the card (``ends.to(...)``, which a capture cannot hold):
+    the solver sees the user's function when it is made, evaluates the
+    terms eagerly and captures its QP preparation; float64 equals the
+    CPU's solve, counts equal, x within 1e-9."""
+    from trajopt_tpu_torch.sqp import nlp as nlp_mod
+
+    prob = _ifopt_problem("boxbot")
+    assert nlp_mod.runs_user_code(prob.build())
+    aot_cache.STATS.reset()
+    with monkeypatch.context() as m:
+        m.setattr(fd, "chunk", _plain_dense_chunk)
+        card, card_x = prob.solve(dtype=torch.float64, device=cuda)
+    assert aot_cache.STATS.replays > 0
+    cpu, cpu_x = prob.solve(dtype=torch.float64, device="cpu")
+    for f in ("status", "n_iter", "n_qp_solves", "n_func_evals"):
+        assert int(getattr(card, f)) == int(getattr(cpu, f)), f
+    np.testing.assert_allclose(card_x["trajectory"], cpu_x["trajectory"],
+                               rtol=0, atol=1e-9)
+
+
+def test_captures_follow_non_tensor_params(cuda, monkeypatch):
+    """Two solves of one solver that differ only in a numpy param (the
+    lanes' goals) each equal the CPU's to 1e-9 and reach their own goals:
+    the solver takes the param as a tensor, so the second solve does not
+    replay the first one's goals."""
+    from trajopt_tpu_torch.problem.trajectory import TrajOptProblem
+    from trajopt_tpu_torch.sqp.solver import make_solver
+    from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
+
+    monkeypatch.setattr(fd, "chunk", _plain_dense_chunk)
+    n = 5
+    prob = TrajOptProblem(n_steps=n, n_dof=2, joint_lower=[-10, -10],
+                          joint_upper=[10, 10], fixed_steps=[0],
+                          device="cpu")
+    prob.add_term(joint_vel(n, 2, is_cost=True))
+    prob.add_term(joint_pos(n, 2, is_cost=False, targets="goal",
+                            first_step=n - 1, last_step=n - 1))
+    solver = make_solver(prob.build(), SQPParams())
+    aot_cache.STATS.reset()
+    for goal in (np.array([[1.0, 2.0]] * 3), np.array([[-1.5, 0.5]] * 3)):
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            x0 = torch.zeros(3, 2 * n, dtype=torch.float64, device=dev)
+            out[dev.type] = solver(x0, *prob.bounds(x0), {"goal": goal})
+        card, cpu = out["cuda"], out["cpu"]
+        assert torch.equal(card.status.cpu(), cpu.status)
+        np.testing.assert_allclose(card.x.cpu().numpy(), cpu.x.numpy(),
+                                   rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cpu.x[:, -2:].numpy(), goal, atol=1e-4)
+    assert aot_cache.STATS.replays > 0

@@ -307,7 +307,7 @@ def test_import_leaves_jax_out():
         "       'sqp.reference_solver', 'parallel', 'parallel.mesh',\n"
         "       'utils.cache', 'utils.checkpoint', 'utils.debug',\n"
         "       'utils.finite_diff', 'utils.joints', 'utils.logging',\n"
-        "       'utils.profiling'}\n"
+        "       'utils.profiling', 'utils.aot_cache'}\n"
         "assert {'trajopt_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'trajopt_tpu' or "

@@ -45,6 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from trajopt_tpu_torch.utils import on_device
+
 # GJK support steps: finite convergence on polytopes (~10 at reference hull
 # sizes; 16 passed every accuracy battery of the JAX package's tests).
 GJK_ITERS = 16
@@ -126,7 +128,8 @@ def _closest_on_simplex(W: torch.Tensor) -> torch.Tensor:
     vertex subsets: each subset's affine minimizer is lam = G^-1 1 / (1'
     G^-1 1) with G the subset's Gram matrix; the projection is the feasible
     (lam >= 0) subset minimizer of least norm.  Branch-free."""
-    sub = torch.as_tensor(_SUBSETS, dtype=W.dtype, device=W.device)
+    sub = on_device(_SUBSETS, "subsets", lambda: _SUBSETS, W.device,
+                    W.dtype)
     G = _dot3(W[..., :, None, :], W[..., None, :, :])      # [..., 4, 4]
     # Padded per-subset systems: identity rows/cols off the subset, and a
     # tiny ridge that keeps degenerate subsets solvable (their lam goes

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from trajopt_tpu_torch.kinematics.transforms import matvec, rmatvec
+from trajopt_tpu_torch.utils import device_const
 
 _EPS = 1e-12
 
@@ -32,8 +33,8 @@ def abs_(x: torch.Tensor) -> torch.Tensor:
 
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jnp.clip`` with its gradient: minimum(hi, maximum(lo, x))."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    lo, hi = (v.to(x) if isinstance(v, torch.Tensor)
+              else device_const(v, x.device, x.dtype) for v in (lo, hi))
     return torch.minimum(hi, torch.maximum(lo, x))
 
 

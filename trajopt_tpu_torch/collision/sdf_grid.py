@@ -46,8 +46,11 @@ class SdfGrid:
         key = (like.device, like.dtype)
         if key not in self._on:
             kw = dict(dtype=like.dtype, device=like.device)
+            top = np.asarray(self.values.shape) - 1
             self._on[key] = (torch.as_tensor(self.values, **kw).reshape(-1),
-                             torch.as_tensor(self.origin, **kw))
+                             torch.as_tensor(self.origin, **kw),
+                             torch.as_tensor(top, **kw),
+                             torch.as_tensor(top - 1, device=like.device))
         return self._on[key]
 
     def query(self, p: torch.Tensor) -> torch.Tensor:
@@ -55,13 +58,10 @@ class SdfGrid:
         3]`` -> ``[...]``.  Outside the grid: the boundary value plus the
         Euclidean distance to the grid box (conservative for enclosed
         obstacles)."""
-        flat, origin = self._tensors(p)
+        flat, origin, max_idx, hi = self._tensors(p)
         nx, ny, nz = self.values.shape
         rel = (p - origin) / self.spacing
-        max_idx = torch.as_tensor([nx - 1, ny - 1, nz - 1], dtype=p.dtype,
-                                  device=p.device)
         clamped = clip(rel, 0.0, max_idx)
-        hi = torch.as_tensor([nx - 2, ny - 2, nz - 2], device=p.device)
         i0 = torch.minimum(torch.clamp_min(
             torch.floor(clamped).to(torch.int64), 0), hi)
         f = clamped - i0.to(p.dtype)

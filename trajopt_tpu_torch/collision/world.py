@@ -46,6 +46,7 @@ from trajopt_tpu_torch.collision.convex import (_rotate, convex_convex,
 from trajopt_tpu_torch.kinematics import urdf as urdf_mod
 from trajopt_tpu_torch.kinematics.chain import KinematicTree
 from trajopt_tpu_torch.kinematics.transforms import matvec, rpy_matrix
+from trajopt_tpu_torch.utils import forget_on_device, on_device
 
 SPHERE, CAPSULE, BOX, SDF = "sphere", "capsule", "box", "sdf"
 # Convex polytope (mesh hull) geometry: vertex set + face normals + edge
@@ -375,6 +376,7 @@ class CollisionScene:
         self._swept_cache = None
         self._groups_cache = None
         self._tensor_cache = None
+        forget_on_device(self)
         return self
 
     def add_world_box(self, name, half_extents, center=(0, 0, 0), R=None,
@@ -770,6 +772,13 @@ class CollisionScene:
         term_pri = (gp[..., None, :] * zt).sum(-1)
         return t["mask"] * torch.where(is_rev, term_rev, term_pri)
 
+    def _order(self, kind: str, device) -> torch.Tensor:
+        """The inverse permutation from group order back to pair order
+        (``pairs``: :meth:`_pair_groups`, ``swept``: :meth:`_swept_groups`)
+        on ``device``."""
+        groups = self._pair_groups if kind == "pairs" else self._swept_groups
+        return on_device(self, kind, lambda: groups()[-1], device)
+
     def _assemble(self, parts, inv_perm):
         return torch.cat(parts, -1)[..., inv_perm]
 
@@ -777,7 +786,7 @@ class CollisionScene:
         """[..., n_pairs] signed distances at link poses ``fk = (R, p)``
         from ``tree.fk`` (the JAX function takes one configuration q)."""
         R, p = fk[0], fk[1]
-        groups, sdf, inv_perm = self._pair_groups()
+        groups, sdf, _ = self._pair_groups()
         parts = []
         for key, _, a, b in groups:
             ta, tb = self._tensors(a, R), self._tensors(b, R)
@@ -793,8 +802,7 @@ class CollisionScene:
         for _, ga, gb, a in sdf:
             parts.append(_sdf_distance(ga, gb, self._posed(
                 self._tensors(a, R), R, p, params)))
-        return self._assemble(parts, torch.as_tensor(inv_perm,
-                                                     device=R.device))
+        return self._assemble(parts, self._order("pairs", R.device))
 
     def distances_and_jac(self, fk, params=None):
         """(ds [..., P], J [..., P, n_dof]) at link poses and joint axes
@@ -803,9 +811,8 @@ class CollisionScene:
         geometric-Jacobian relations."""
         R, p, z, o = fk
         zxo = geom.cross(z, o)
-        is_rev = torch.as_tensor(self.tree._active_types() == 0,
-                                 device=R.device)
-        groups, sdf, inv_perm = self._pair_groups()
+        is_rev = self.tree.revolute(R.device)
+        groups, sdf, _ = self._pair_groups()
         ds, Js = [], []
         with torch.enable_grad():
             for key, _, a, b in groups:
@@ -839,7 +846,7 @@ class CollisionScene:
                 ds.append(d.detach())
                 Js.append(self._compose_pose_grads(g[0], g[1], Rl, pl, ta,
                                                    z, zxo, is_rev))
-        ip = torch.as_tensor(inv_perm, device=R.device)
+        ip = self._order("pairs", R.device)
         return self._assemble(ds, ip), torch.cat(Js, -2)[..., ip, :]
 
     def swept_distances(self, fk0, fk1, params=None) -> torch.Tensor:
@@ -850,7 +857,7 @@ class CollisionScene:
         sub-segments share their endpoint FK)."""
         R0, p0 = fk0[0], fk0[1]
         R1, p1 = fk1[0], fk1[1]
-        moving, static, sdf, inv_perm = self._swept_groups()
+        moving, static, sdf, _ = self._swept_groups()
         parts = []
         for key, _, a, b in moving:
             ta, tb = self._tensors(a, R0), self._tensors(b, R0)
@@ -880,8 +887,7 @@ class CollisionScene:
             parts.append(_swept_sdf_distance(
                 ga, gb, self._posed(ta, R0, p0, params),
                 self._posed(ta, R1, p1, params)))
-        return self._assemble(parts, torch.as_tensor(inv_perm,
-                                                     device=R0.device))
+        return self._assemble(parts, self._order("swept", R0.device))
 
     def swept_distances_and_jac(self, fk0, fk1, params=None):
         """(ds [..., P], J0 [..., P, n_dof], J1 [..., P, n_dof]) of the
@@ -893,9 +899,8 @@ class CollisionScene:
         R1, p1, z1, o1 = fk1
         zxo0 = geom.cross(z0, o0)
         zxo1 = geom.cross(z1, o1)
-        is_rev = torch.as_tensor(self.tree._active_types() == 0,
-                                 device=R0.device)
-        moving, static, sdf, inv_perm = self._swept_groups()
+        is_rev = self.tree.revolute(R0.device)
+        moving, static, sdf, _ = self._swept_groups()
 
         def c0(gR, gp, Rl, pl, t, sl=slice(None)):
             return self._compose_pose_grads(gR, gp, Rl, pl, t, z0[sl],
@@ -966,7 +971,7 @@ class CollisionScene:
                 ds.append(d.detach())
                 J0s.append(c0(g[0], g[1], Rl0, pl0, ta))
                 J1s.append(c1(g[2], g[3], Rl1, pl1, ta))
-        ip = torch.as_tensor(inv_perm, device=R0.device)
+        ip = self._order("swept", R0.device)
         return (self._assemble(ds, ip), torch.cat(J0s, -2)[..., ip, :],
                 torch.cat(J1s, -2)[..., ip, :])
 

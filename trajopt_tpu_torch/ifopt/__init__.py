@@ -41,9 +41,11 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch import resolve_device, resolve_dtype
-from trajopt_tpu_torch.sqp.nlp import Consts, Kind, Nlp, TermSet, as_like
+from trajopt_tpu_torch.sqp.nlp import (Consts, Kind, Nlp, TermSet,
+                                       library_code)
 from trajopt_tpu_torch.sqp.params import SQPParams
 from trajopt_tpu_torch.sqp.solver import SQPResult, make_solver
+from trajopt_tpu_torch.utils import aot_cache, on_device
 
 __all__ = [
     "Bounds", "BoundsEquality", "BoundSmallerZero", "BoundGreaterZero",
@@ -212,8 +214,9 @@ class ConstraintSet:
     # -- reference utility: calcBoundsErrors (utils/ifopt_utils.h) --
     def bounds_errors(self, v: torch.Tensor) -> torch.Tensor:
         zero = v.new_zeros(())
-        return torch.maximum(v - as_like(self.upper, v), zero) \
-            + torch.minimum(v - as_like(self.lower, v), zero)
+        lo, hi = (on_device(a, "bounds", lambda a=a: a, v.device, v.dtype)
+                  for a in (self.lower, self.upper))
+        return torch.maximum(v - hi, zero) + torch.minimum(v - lo, zero)
 
 
 class FunctionalConstraint(ConstraintSet):
@@ -296,6 +299,14 @@ class Problem:
         return self._n
 
     # -- lowering --
+    @staticmethod
+    def _user_code(cs: "ConstraintSet") -> bool:
+        """Whether ``cs`` evaluates through a user's code: a user's class
+        (a subclass's ``values``), an instance's own ``jacobian``, or a
+        ``FunctionalConstraint``'s callable."""
+        return not all(map(library_code, (type(cs), cs.jacobian,
+                                          getattr(cs, "_fn", None))))
+
     def _groups(self) -> dict[int, "_Group"]:
         """The evaluation group of each grouped constraint set, by id."""
         by_key: dict = {}
@@ -349,7 +360,8 @@ class Problem:
 
             out.append(TermSet(name=f"{cs.name}/{suffix}", kind=kind, fn=fn,
                                n_rows=int(mask.sum()),
-                               jac_fn=None if jac is None else jac_fn))
+                               jac_fn=None if jac is None else jac_fn,
+                               user_code=self._user_code(cs)))
 
         if eq.any():
             part("eq", Kind.CNT_EQ, eq, cs.lower, 1.0)
@@ -368,11 +380,12 @@ class Problem:
                     else Kind.COST_ABS)
             return TermSet(name=cost.name, kind=kind,
                            fn=lambda x, p: cs.bounds_errors(values(x)),
-                           n_rows=cs.rows, weight_fn=lambda p: w)
+                           n_rows=cs.rows, weight_fn=lambda p: w,
+                           user_code=self._user_code(cs))
         value = self._batch_fn(cost.cost, False)
         return TermSet(name=cost.name, kind=Kind.COST_GENERIC_FULL,
                        fn=lambda x, p: value(x).reshape(x.shape[0], 1),
-                       n_rows=1)
+                       n_rows=1, user_code=not library_code(type(cost)))
 
     def build(self) -> Nlp:
         terms: list[TermSet] = []
@@ -421,8 +434,11 @@ class _Group:
     """Constraint sets evaluated together: the first member's term to see a
     batch ``x`` runs the class's group method once for all members, and
     every member reads its own result until a different ``x`` (or an
-    in-place change of it) comes.  Under ``torch.func`` transforms each
-    set is evaluated alone."""
+    in-place change of it, or the start of a warm-up or capture of a
+    ``utils/aot_cache.py`` region) comes.  Under ``torch.func`` transforms
+    each set is evaluated alone.  The epoch check keeps a capture from
+    reading a result of its warm-up, which holds the same input tensor:
+    the graph would then replay without the group's evaluation."""
 
     def __init__(self, sets: list[ConstraintSet], var_sets: dict):
         self.sets = sets
@@ -436,12 +452,15 @@ class _Group:
             if torch._C._functorch.is_functorch_wrapped_tensor(x):
                 return alone(x)
             hit = self._memo.get(method)
-            if hit is None or hit[0] is not x or hit[1] != x._version:
+            epoch = aot_cache.capture_epoch()
+            if hit is None or hit[0] is not x or hit[1] != x._version \
+                    or hit[2] != epoch:
                 out = getattr(type(cs), method)(
                     self.sets, _VarReader(x, self._var_sets))
-                hit = (x, x._version, dict(zip(map(id, self.sets), out)))
+                hit = (x, x._version, epoch,
+                       dict(zip(map(id, self.sets), out)))
                 self._memo[method] = hit
-            return hit[2][id(cs)]
+            return hit[3][id(cs)]
         return fn
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch.kinematics import urdf as urdf_mod
+from trajopt_tpu_torch.utils import on_device
 
 
 def _np_rpy_matrix(rpy) -> np.ndarray:
@@ -190,14 +191,19 @@ class KinematicTree:
             link = self.link_id(link)
         R, p, z, o = self.fk_with_axes(q)
         target = p[..., link, :] if ref_point is None else ref_point
-        mask = torch.as_tensor(self.ancestor[link], dtype=q.dtype,
-                               device=q.device)
-        is_rev = torch.as_tensor(self._active_types() == 0, device=q.device)
+        mask = on_device(self, "ancestor", lambda: self.ancestor, q.device,
+                         q.dtype)[link]
+        is_rev = self.revolute(q.device)
         lin_rev = torch.linalg.cross(z, target[..., None, :] - o, dim=-1)
         lin = torch.where(is_rev[:, None], lin_rev, z) * mask[:, None]
         ang = torch.where(is_rev[:, None], z, torch.zeros_like(z)) \
             * mask[:, None]
         return torch.cat([lin.transpose(-1, -2), ang.transpose(-1, -2)], -2)
+
+    def revolute(self, device) -> torch.Tensor:
+        """[n_dof] bool on ``device``: is each active joint revolute."""
+        return on_device(self, "revolute", lambda: self._active_types() == 0,
+                         device)
 
     def _active_types(self) -> np.ndarray:
         out = np.zeros(self.n_dof, np.int32)

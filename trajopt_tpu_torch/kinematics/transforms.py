@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from trajopt_tpu_torch.utils import device_const
+
 
 def rpy_matrix(rpy: torch.Tensor) -> torch.Tensor:
     """URDF fixed-axis RPY: R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
@@ -67,12 +69,13 @@ def rotvec_from_matrix(R: torch.Tensor) -> torch.Tensor:
 
     Matches tesseract's calcRotationalError convention (angle in (-pi, pi]).
     """
+    def const(v):
+        return device_const(v, R.device, R.dtype)
+
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
-    trace = torch.minimum(torch.maximum(trace, trace.new_tensor(-1.0)),
-                          trace.new_tensor(3.0))
+    trace = torch.minimum(torch.maximum(trace, const(-1.0)), const(3.0))
     cos_t = (trace - 1.0) * 0.5
-    cos_t = torch.minimum(torch.maximum(cos_t, cos_t.new_tensor(-1.0)),
-                          cos_t.new_tensor(1.0))
+    cos_t = torch.minimum(torch.maximum(cos_t, const(-1.0)), const(1.0))
     # Skew part: (R - R^T)/2 = sin(theta) * [axis]_x
     w = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2],
                            R[..., 0, 2] - R[..., 2, 0],
@@ -94,7 +97,7 @@ def rotvec_from_matrix(R: torch.Tensor) -> torch.Tensor:
     col = torch.gather(B, -1, i_max[..., None, None].expand(
         *B.shape[:-1], 1))[..., 0]
     nrm = torch.linalg.vector_norm(col, dim=-1)
-    axis = col / torch.maximum(nrm, nrm.new_tensor(1e-12))[..., None]
+    axis = col / torch.maximum(nrm, const(1e-12))[..., None]
     flip = torch.where((axis * w).sum(-1) < 0.0, -1.0, 1.0).to(R.dtype)
     rot_pi = axis * (flip * theta)[..., None]
     return torch.where(near_pi[..., None], rot_pi, rot_general)

@@ -257,30 +257,65 @@ def chunk_operands(qp: QPData, x0, cfg: ADMMConfig = ADMMConfig()):
         (sq.A @ x[..., None])[..., 0], torch.zeros_like(sq.l)))
 
 
+class DensePrepared(NamedTuple):
+    """What the chunk loop of :func:`solve_qp_prepared` starts from: the
+    scaled QP, its scaling, the scaled warm start and the termination
+    constants; ``rho`` and ``minv`` are the rows' rho and the
+    factorization under fixed rho (None with ``adaptive_rho``, which
+    refactors before every chunk)."""
+
+    qp: QPData
+    sc: Scaling
+    x: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    q_norm: torch.Tensor
+    rho: torch.Tensor | None
+    minv: torch.Tensor | None
+
+
+def prepare_qp(qp: QPData, x0, z0=None, y0=None,
+               cfg: ADMMConfig = ADMMConfig()) -> DensePrepared:
+    """Everything of :func:`solve_qp` before its chunk loop: equilibrate,
+    scale the warm start (x0, z0, y0, unscaled units) and, under fixed
+    rho, factor once.  Syncs nothing with the host."""
+    orig_q = qp.q
+    qp, sc = scale_qp(qp, cfg)
+    qp = qp._replace(A=qp.A.contiguous())
+    A = qp.A
+    B, m = A.shape[:2]
+    x = x0.to(A.dtype) / sc.D
+    z = (A @ x[..., None])[..., 0] if z0 is None else z0.to(A.dtype) * sc.E
+    y = (x.new_zeros(B, m) if y0 is None
+         else y0.to(A.dtype) * (sc.c_obj[:, None] / sc.E))
+    rho = minv = None
+    if not cfg.adaptive_rho:
+        # rho never changes: factor once, outside the chunk loop.
+        rho = _row_rho(qp, cfg, x.new_ones(B))
+        minv = _factor(qp, cfg, rho)
+    return DensePrepared(qp=qp, sc=sc, x=x, z=z, y=y,
+                         q_norm=_inf_norm(orig_q), rho=rho, minv=minv)
+
+
 def solve_qp(qp: QPData, x0, z0=None, y0=None,
              cfg: ADMMConfig = ADMMConfig()) -> ADMMResult:
     """Solve a batch of QPs, warm-started from (x0, z0, y0) in unscaled
     units; termination residuals are unscaled (OSQP).  A lane runs chunks
     of ``check_every`` iterations while it is not converged and under
     ``max_iter``."""
-    orig_q = qp.q
     with record_function("qp.prepare"):
-        qp, sc = scale_qp(qp, cfg)
-    A, P = qp.A.contiguous(), qp.P
-    B, m, n = A.shape
-    dev = A.device
+        prep = prepare_qp(qp, x0, z0, y0, cfg)
+    return solve_qp_prepared(prep, cfg)
 
-    x = x0.to(A.dtype) / sc.D
-    z = (A @ x[..., None])[..., 0] if z0 is None else z0.to(A.dtype) * sc.E
-    y = (x.new_zeros(B, m) if y0 is None
-         else y0.to(A.dtype) * (sc.c_obj[:, None] / sc.E))
-    q_norm = _inf_norm(orig_q)
+
+def solve_qp_prepared(prep: DensePrepared,
+                      cfg: ADMMConfig = ADMMConfig()) -> ADMMResult:
+    """The chunk loop of :func:`solve_qp` on a prepared QP."""
+    qp, sc, x, z, y, q_norm = prep[:6]
+    A, P = qp.A, qp.P
+    B, m = A.shape[:2]
+    dev = A.device
     cD = sc.c_obj[:, None] * sc.D
-    if not cfg.adaptive_rho:
-        # rho never changes: factor once, outside the chunk loop.
-        rho_const = _row_rho(qp, cfg, x.new_ones(B))
-        with record_function("qp.prepare"):
-            minv_const = _factor(qp, cfg, rho_const)
 
     K = max(cfg.anderson, 1)
     inf = float("inf")
@@ -298,7 +333,7 @@ def solve_qp(qp: QPData, x0, z0=None, y0=None,
             with record_function("qp.prepare"):
                 minv = _factor(qp, cfg, rho_vec)
         else:
-            rho_vec, minv = rho_const, minv_const
+            rho_vec, minv = prep.rho, prep.minv
         v_start = torch.cat([st.z, st.y / rho_vec], -1)
         x, z, y, Ax = fused_dense.chunk(
             minv.contiguous(), A, qp.q.contiguous(), qp.l.contiguous(),

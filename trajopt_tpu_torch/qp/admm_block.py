@@ -99,15 +99,15 @@ class PreparedBlockQP(NamedTuple):
     sc: _Scale
     rho_c: torch.Tensor
     rho_b: torch.Tensor
-    Minv: torch.Tensor
+    Minv: torch.Tensor   # None between block_system and its inverse
     q_norm: torch.Tensor
 
 
-def prepare_qp_block(qp: BlockQP, cfg: ADMMConfig = ADMMConfig(),
-                     minv0: torch.Tensor | None = None) -> PreparedBlockQP:
-    """Equilibrate and factor the x-update system M = P + sigma I + C'R C
-    + diag(rho_b b^2); with a seed ``minv0`` the inverse is refreshed by
-    safeguarded Newton-Schulz instead of Cholesky."""
+def block_system(qp: BlockQP, cfg: ADMMConfig = ADMMConfig()
+                 ) -> tuple[PreparedBlockQP, torch.Tensor]:
+    """Everything of :func:`prepare_qp_block` before the inverse: the
+    prepared QP with ``Minv`` unset, and the x-update system M = P +
+    sigma I + C'R C + diag(rho_b b^2).  Syncs nothing with the host."""
     dtype, n = qp.P.dtype, qp.P.shape[-1]
     sq, b_diag, sc = _ruiz(qp, cfg.ruiz_iters)
     P2, q2, c2, c_obj2 = apply_dual_cost_scale(sq.P, sq.q, sq.c, sc.c_obj,
@@ -126,14 +126,32 @@ def prepare_qp_block(qp: BlockQP, cfg: ADMMConfig = ADMMConfig(),
     eye = torch.eye(n, dtype=dtype, device=qp.P.device)
     M = sq.P + cfg.sigma * eye + bb.at_r_a(sq.C, rho_c) \
         + torch.diag_embed(rho_b * b_diag * b_diag)
+    return PreparedBlockQP(sq=sq, b_diag=b_diag, sc=sc, rho_c=rho_c,
+                           rho_b=rho_b, Minv=None, q_norm=_inf(qp.q)), M
+
+
+def invert_block_system(prep: PreparedBlockQP, M: torch.Tensor,
+                        cfg: ADMMConfig = ADMMConfig(),
+                        minv0: torch.Tensor | None = None
+                        ) -> PreparedBlockQP:
+    """``prep`` with ``Minv`` the inverse of M: by Cholesky, or with a
+    seed ``minv0`` refreshed by safeguarded Newton-Schulz (whose loop
+    syncs with the host)."""
     if minv0 is None:
         Minv = cholesky_inverse(M)
     else:
         Minv = ns_inverse(M, minv0, tol=cfg.ns_tol, max_iter=cfg.ns_max_iter,
                           power_iters=cfg.ns_power_iters,
                           coarse=cfg.ns_coarse)
-    return PreparedBlockQP(sq=sq, b_diag=b_diag, sc=sc, rho_c=rho_c,
-                           rho_b=rho_b, Minv=Minv, q_norm=_inf(qp.q))
+    return prep._replace(Minv=Minv)
+
+
+def prepare_qp_block(qp: BlockQP, cfg: ADMMConfig = ADMMConfig(),
+                     minv0: torch.Tensor | None = None) -> PreparedBlockQP:
+    """Equilibrate and factor the x-update system M = P + sigma I + C'R C
+    + diag(rho_b b^2); with a seed ``minv0`` the inverse is refreshed by
+    safeguarded Newton-Schulz instead of Cholesky."""
+    return invert_block_system(*block_system(qp, cfg), cfg, minv0)
 
 
 def chunk_operands(prep: PreparedBlockQP, lb, ub, x0, zc0=None, zb0=None,

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from trajopt_tpu_torch.utils import on_device
+
 
 class BlockPlan(NamedTuple):
     """Static layout: original banded rows -> (step, slot) positions.
@@ -78,15 +80,18 @@ def make_plan(starts: np.ndarray, w: int, T: int, D: int) -> BlockPlan:
                      scatter_idx=scatter_idx.astype(np.int64))
 
 
-def _idx(a: np.ndarray, device) -> torch.Tensor:
-    return torch.tensor(a, device=device)
+def _idx(plan: BlockPlan, name: str, device) -> torch.Tensor:
+    """The plan's index array ``name`` on ``device``, kept on the plan's
+    ``blk_index`` (a plan is a tuple, which takes no weak reference)."""
+    return on_device(plan.blk_index, name, lambda: getattr(plan, name),
+                     device)
 
 
 def from_rows(W: torch.Tensor, plan: BlockPlan) -> BlockBanded:
     """Pack [B, m, w] row weights into the [B, T, R, K*D] block layout."""
     B = W.shape[0]
     flat = W.new_zeros(B, plan.m_blk * plan.K * plan.D)
-    flat = flat.index_add(1, _idx(plan.scatter_idx, W.device),
+    flat = flat.index_add(1, _idx(plan, "scatter_idx", W.device),
                           W.reshape(B, -1))
     return BlockBanded(Wb=flat.reshape(B, plan.T, plan.R, plan.K * plan.D),
                        plan=plan)
@@ -95,13 +100,13 @@ def from_rows(W: torch.Tensor, plan: BlockPlan) -> BlockBanded:
 def to_block(v: torch.Tensor, plan: BlockPlan, fill: float = 0.0):
     """Permute [B, m] row vectors into padded block order [B, T*R]."""
     out = v.new_full((v.shape[0], plan.m_blk), fill)
-    out[:, _idx(plan.blk_index, v.device)] = v
+    out[:, _idx(plan, "blk_index", v.device)] = v
     return out
 
 
 def from_block(vb: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
     """Recover [B, m] original-order row vectors from block order."""
-    return vb[:, _idx(plan.blk_index, vb.device)]
+    return vb[:, _idx(plan, "blk_index", vb.device)]
 
 
 def window(x: torch.Tensor, T: int, D: int, K: int) -> torch.Tensor:
@@ -185,13 +190,18 @@ def at_r_a(C: BlockBanded, rho: torch.Tensor) -> torch.Tensor:
     KD, n, B = K * D, plan.n, C.Wb.shape[0]
     Wr = C.Wb * rho.reshape(B, T, R)[..., None]
     blocks = Wr.transpose(-1, -2) @ C.Wb                     # [B, T, KD, KD]
-    tt = np.arange(T)[:, None, None]
-    # steps > T-K hold no rows (their blocks are zero); clamp their indices.
-    ii = np.minimum(tt * D + np.arange(KD)[None, :, None], n - 1)
-    jj = np.minimum(tt * D + np.arange(KD)[None, None, :], n - 1)
-    flat = np.broadcast_to(ii * n + jj, (T, KD, KD)).reshape(-1)
+
+    def flat():
+        tt = np.arange(T)[:, None, None]
+        # steps > T-K hold no rows (their blocks are zero); clamp their
+        # indices.
+        ii = np.minimum(tt * D + np.arange(KD)[None, :, None], n - 1)
+        jj = np.minimum(tt * D + np.arange(KD)[None, None, :], n - 1)
+        return np.broadcast_to(ii * n + jj, (T, KD, KD)).reshape(-1)
+
     out = C.Wb.new_zeros(B, n * n)
-    out = out.index_add(1, _idx(flat, C.Wb.device), blocks.reshape(B, -1))
+    idx = on_device(plan.blk_index, "at_r_a", flat, C.Wb.device)
+    out = out.index_add(1, idx, blocks.reshape(B, -1))
     return out.reshape(B, n, n)
 
 
@@ -205,5 +215,6 @@ def to_dense(C: BlockBanded) -> torch.Tensor:
                       + np.arange(K * D)[None, None, :], n - 1)
     flat = np.broadcast_to(rows * n + cols, (T, R, K * D)).reshape(-1)
     out = C.Wb.new_zeros(B, plan.m_blk * n)
-    out = out.index_add(1, _idx(flat, C.Wb.device), C.Wb.reshape(B, -1))
+    out = out.index_add(1, torch.tensor(flat, device=C.Wb.device),
+                        C.Wb.reshape(B, -1))
     return out.reshape(B, plan.m_blk, n)

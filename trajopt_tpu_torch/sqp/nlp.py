@@ -24,6 +24,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from trajopt_tpu_torch.utils import device_const, on_device
+
 Params = dict
 
 
@@ -53,9 +55,19 @@ def one_lane(params: dict) -> dict:
             else v[None] for k, v in params.items()}
 
 
-def as_like(v, like: torch.Tensor) -> torch.Tensor:
-    """``v`` as a tensor on ``like``'s device and dtype."""
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+def as_like(v, like: torch.Tensor, owner) -> torch.Tensor:
+    """``v`` as a tensor on ``like``'s device and dtype.  A host array is
+    uploaded once per content and kept on ``owner`` (the term or set whose
+    value it is; :func:`~trajopt_tpu_torch.utils.on_device`), a number
+    through :func:`~trajopt_tpu_torch.utils.device_const`: a captured
+    region cannot copy from the host."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return device_const(a, like.device, like.dtype)
+    return on_device(owner, ("value", a.dtype.str, a.shape, a.tobytes()),
+                     lambda: a, like.device, like.dtype)
 
 
 class Consts:
@@ -87,6 +99,8 @@ class TermSet:
     covering columns ``band_starts[r] ... + band_width``;
     ``val_banded_jac`` returns (residuals, W) from one pass.  ``groups``
     maps constraint rows to merit units (None -> one unit).
+    ``user_code`` marks a set whose callables, though the port's own, call
+    a user's function (see :func:`runs_user_code`).
     """
 
     name: str
@@ -103,6 +117,7 @@ class TermSet:
     val_banded_jac: Callable | None = None
     groups: np.ndarray | None = None
     n_groups: int = 1
+    user_code: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,20 +146,45 @@ class Nlp:
         return len(self.cnt_sets)
 
 
+def library_code(f) -> bool:
+    """Whether the callable (or class) ``f`` is the port's own code (None
+    counts as such)."""
+    if f is None:
+        return True
+    mod = str(getattr(f, "__module__", ""))
+    return mod == "trajopt_tpu_torch" or mod.startswith("trajopt_tpu_torch.")
+
+
+def runs_user_code(nlp: Nlp) -> bool:
+    """Whether evaluating ``nlp`` runs code the port did not write: a set
+    marked ``user_code`` (a user's function behind the port's closure, as
+    in ``terms/user.py`` and the ifopt facade) or a callable from another
+    module.  The solver evaluates such an Nlp eagerly: a user's function
+    may copy a host constant to the card (``t.to(x)``), which a CUDA graph
+    capture cannot hold."""
+    return any(t.user_code or not all(map(library_code, (
+        t.fn, t.weight_fn, t.jac_fn, t.banded_jac, t.val_jac_fn,
+        t.val_banded_jac))) for t in nlp.term_sets)
+
+
 def banded_to_dense(W: torch.Tensor, starts, n: int) -> torch.Tensor:
     """Dense rows [B, rows, n] of banded rows ``W [B, rows, w]`` whose row
     r covers columns ``starts[r] ... + w`` (columns past n dropped)."""
     B, rows, w = W.shape
-    idx = np.asarray(starts)[:, None] + np.arange(w)
-    keep = torch.as_tensor(idx < n, dtype=W.dtype, device=W.device)
-    idx = torch.as_tensor(np.minimum(idx, n - 1), device=W.device)
+
+    def cols():
+        return np.asarray(starts)[:, None] + np.arange(w)
+    keep = on_device(starts, ("keep", w, n), lambda: cols() < n, W.device,
+                     W.dtype)
+    idx = on_device(starts, ("cols", w, n),
+                    lambda: np.minimum(cols(), n - 1), W.device)
     return W.new_zeros(B, rows, n).scatter_add(
         -1, idx.expand(B, rows, w), W * keep)
 
 
 def _weights(t: TermSet, params, like: torch.Tensor) -> torch.Tensor:
     """Per-row weights broadcast to [B, n_rows]."""
-    w = as_like(t.weight_fn(params), like)
+    w = as_like(t.weight_fn(params), like, t)
     return torch.broadcast_to(w, (like.shape[0], t.n_rows))
 
 
@@ -230,13 +270,17 @@ def cnt_group_names(nlp: Nlp) -> list[str]:
     return names
 
 
+def term_groups_index(t: TermSet, device) -> torch.Tensor:
+    """``t.groups`` (each row's merit unit) on ``device``, kept on ``t``."""
+    return on_device(t, "groups", lambda: t.groups, device)
+
+
 def _group_reduce(viol_rows: torch.Tensor, t: TermSet) -> torch.Tensor:
     """Sum per-row violations [B, rows] into per-group totals."""
     if t.groups is None:
         return viol_rows.sum(-1, keepdim=True)
     out = viol_rows.new_zeros(viol_rows.shape[0], t.n_groups)
-    return out.index_add(1, torch.as_tensor(t.groups, device=out.device),
-                         viol_rows)
+    return out.index_add(1, term_groups_index(t, out.device), viol_rows)
 
 
 def _psd_project(H: torch.Tensor) -> torch.Tensor:
@@ -318,7 +362,7 @@ def eval_exact_costs(nlp: Nlp, x, params) -> torch.Tensor:
     vals = []
     for t in nlp.cost_sets:
         r = t.fn(x, params)
-        w = as_like(t.weight_fn(params), x)
+        w = as_like(t.weight_fn(params), x, t)
         if t.kind is Kind.COST_SQ:
             vals.append((w * r * r).sum(-1))
         elif t.kind is Kind.COST_ABS:
@@ -483,10 +527,11 @@ def structured_band(nlp: Nlp) -> tuple[np.ndarray, int]:
     return starts, w
 
 
-def _band_index(starts, w, n, device) -> torch.Tensor:
-    return torch.as_tensor(
-        np.minimum(np.asarray(starts)[:, None] + np.arange(w), n - 1),
-        device=device)
+def _band_index(owner, starts, w, n, device) -> torch.Tensor:
+    """[rows, w] columns of banded rows starting at ``starts`` (clamped to
+    n - 1), on ``device``, kept on ``owner``."""
+    return on_device(owner, ("band", w, n), lambda: np.minimum(
+        np.asarray(starts)[:, None] + np.arange(w), n - 1), device)
 
 
 def convexify_structured(nlp: Nlp, x, params, jac_cache=None
@@ -506,7 +551,7 @@ def convexify_structured(nlp: Nlp, x, params, jac_cache=None
         if t.band_width != w:
             Wt = torch.cat([Wt, Wt.new_zeros(B, t.n_rows, w - t.band_width)],
                            -1)
-        idx = _band_index(t.band_starts, w, n, x.device)
+        idx = _band_index(t, t.band_starts, w, n, x.device)
         b = r - (Wt * x[:, idx]).sum(-1)
         W_rows.append(Wt)
         b_rows.append(b)
@@ -536,7 +581,7 @@ def convexify_structured(nlp: Nlp, x, params, jac_cache=None
 def structured_row_values(nlp: Nlp, sm: StructuredModel, x):
     """a(x) = C x + b for all banded rows."""
     starts, w = structured_band(nlp)
-    idx = _band_index(starts, w, nlp.n, x.device)
+    idx = _band_index(nlp, starts, w, nlp.n, x.device)
     return (sm.W * x[:, idx]).sum(-1) + sm.b
 
 

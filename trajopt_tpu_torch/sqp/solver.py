@@ -20,6 +20,18 @@ every loop runs while any lane is live; each pass gathers the live lanes,
 steps them, and scatters the results back.  Lanes never mix, so a lane's
 result does not depend on its neighbours, exactly as under ``vmap``.
 
+The sync-free regions of a pass -- the convexification (with the block
+QP's equilibration and system, and its Cholesky inverse where no seed is
+carried), the dense QP's preparation, the exact evaluation with the
+accept/shrink bookkeeping, and the solve's initial convexification and
+evaluation -- run through ``utils/aot_cache.py``: on the card each is
+captured once per (region, lane bucket) as a CUDA graph and replayed, the
+counterpart of ``jax.jit``.  What syncs with the host stays eager: the
+live-lane gathers, the trust-region loop, the ADMM chunk loops, the
+Newton-Schulz refresh, the step tail and callbacks.  A region runs at
+its live lanes' bucket (``aot_cache.bucket``) on every device, the pad
+lanes repeating the first live lane and dropped on return.
+
 Nothing of the JAX ``make_solver`` is left out; like it, the solver has
 no wall clock (``SQPParams.max_time`` is read by the JAX package's
 reference solver only).
@@ -29,13 +41,16 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from trajopt_tpu_torch.qp import banded as bd
 from trajopt_tpu_torch.qp import block_banded as bb
-from trajopt_tpu_torch.qp.admm import QPData, solve_qp
-from trajopt_tpu_torch.qp.admm_block import (BlockQP, prepare_qp_block,
+from trajopt_tpu_torch.qp.admm import (QPData, prepare_qp,
+                                       solve_qp_prepared)
+from trajopt_tpu_torch.qp.admm_block import (BlockQP, block_system,
+                                             invert_block_system,
                                              solve_qp_block_prepared)
 from trajopt_tpu_torch.qp.admm_structured import (StructuredQP,
                                                   solve_qp_structured)
@@ -43,6 +58,7 @@ from trajopt_tpu_torch.qp.ipm import IPMConfig, solve_qp_ipm
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.nlp import ConvexModel, Nlp, StructuredModel
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
+from trajopt_tpu_torch.utils import aot_cache
 
 
 class SQPResult(NamedTuple):
@@ -127,6 +143,19 @@ def _live(mask: torch.Tensor):
     return True, (None if idx.numel() == mask.numel() else idx)
 
 
+def _as_param(v, like: torch.Tensor):
+    """A params value with its numbers and arrays as tensors on ``like``'s
+    device (floating ones in its dtype), as a jitted function takes them:
+    a region captured on the card would otherwise freeze a host value."""
+    if isinstance(v, tuple):
+        return tuple(_as_param(e, like) for e in v)
+    if not isinstance(v, (np.ndarray, np.generic, list, int, float)):
+        return v
+    a = np.asarray(v)
+    return torch.as_tensor(a, dtype=like.dtype if a.dtype.kind == "f"
+                           else None, device=like.device)
+
+
 def _cnt_row_coeffs(nlp: Nlp, merit_coeffs: torch.Tensor) -> torch.Tensor:
     """Per-group merit coefficients [B, groups] expanded to per-row
     penalty weights [B, cnt_rows]."""
@@ -136,8 +165,7 @@ def _cnt_row_coeffs(nlp: Nlp, merit_coeffs: torch.Tensor) -> torch.Tensor:
         if t.groups is None:
             parts.append(cg.expand(-1, t.n_rows))
         else:
-            parts.append(cg[:, torch.as_tensor(t.groups,
-                                               device=cg.device)])
+            parts.append(cg[:, nlp_mod.term_groups_index(t, cg.device)])
     if not parts:
         return merit_coeffs.new_zeros(merit_coeffs.shape[0], 0)
     return torch.cat(parts, -1)
@@ -288,14 +316,71 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
     use_block = plan is not None
     ns_refresh = use_block and cfg.ns_refresh
 
+    graphs, pools = {}, {}
+    # A user's term function may copy a host constant to the card, which a
+    # capture cannot hold: the regions that evaluate terms then run eagerly
+    # (decided here, once, from the Nlp; never after a failed capture).
+    user_code = nlp_mod.runs_user_code(nlp)
+
+    def region(name: str, fn, args: tuple, B: int, terms: bool = True):
+        """``fn(*args)`` on the live lanes ``args`` hold, run at their
+        bucket (pad lanes repeat the first live lane and are dropped on
+        return); on the card through the solver's capture of (region,
+        bucket), all in one memory pool a device, unless the region
+        evaluates ``terms`` of an Nlp that runs user code."""
+        lead = aot_cache.flatten(args)[0][0]
+        k, dev = lead.shape[0], lead.device
+        padded = aot_cache.pad_lanes(args, aot_cache.bucket(k, B))
+        if terms and user_code:
+            return aot_cache.take_lanes(fn(*padded), k)
+        if dev.type == "cuda" and dev not in pools:
+            pools[dev] = torch.cuda.graph_pool_handle()
+        f = aot_cache.cached_export(fn, padded, f"sqp.{name}",
+                                    pool=pools.get(dev), memo=graphs)
+        return aot_cache.take_lanes(f(*padded), k)
+
     def merit(cost_vals, cnt_viols, merit_coeffs):
         return cost_vals.sum(-1) + (merit_coeffs * cnt_viols).sum(-1)
 
-    def block_prepare(model: StructuredModel, merit_coeffs, x, minv0=None):
-        """Equilibrate and factor the block QP once per SQP step (every
-        trust-region QP of the step reuses it)."""
-        return prepare_qp_block(block_qp(nlp, plan, model, merit_coeffs, x),
-                                cfg=cfg, minv0=minv0)
+    def convexify_region(x, params, jac_cache, merit_coeffs):
+        """(model, prep, M): the convex model at x; on the block path the
+        step's equilibrated QP (every trust-region QP of the step reuses
+        it) with its Cholesky inverse, or with the Newton-Schulz refresh
+        its system M, inverted outside the region."""
+        if structured:
+            model = nlp_mod.convexify_structured(nlp, x, params, jac_cache)
+        else:
+            model = nlp_mod.convexify(nlp, x, params, jac_cache)
+        if not use_block:
+            return model, None, None
+        prep, M = block_system(block_qp(nlp, plan, model, merit_coeffs, x),
+                               cfg)
+        if ns_refresh:
+            return model, prep, M
+        return model, invert_block_system(prep, M, cfg), None
+
+    def init_region(x0, params, coeffs0):
+        """The solve's start: the affine sets' Jacobians, the exact costs
+        and violations at x0 and, with the Newton-Schulz refresh, the
+        carried KKT inverse seeded by one Cholesky."""
+        jac_cache = nlp_mod.linear_jacobians(nlp, x0, params)
+        minv = x0.new_zeros(x0.shape[0], 0, 0)
+        if ns_refresh:
+            model0 = nlp_mod.convexify_structured(nlp, x0, params, jac_cache)
+            minv = invert_block_system(*block_system(
+                block_qp(nlp, plan, model0, coeffs0, x0), cfg), cfg).Minv
+        return (jac_cache, minv, nlp_mod.eval_exact_costs(nlp, x0, params),
+                nlp_mod.eval_exact_cnt_viols(nlp, x0, params))
+
+    def dense_prepare_region(x_state, box_size, lb, ub, model, merit_coeffs,
+                             x, z, y):
+        """The dense ADMM's trust-region QP (the trust box is the variable
+        bounds clamped around the iterate), equilibrated, warm-started and
+        (under fixed rho) factored."""
+        lb_box = torch.maximum(lb, x_state - box_size[:, None])
+        ub_box = torch.minimum(ub, x_state + box_size[:, None])
+        return prepare_qp(build_qp(nlp, model, merit_coeffs, lb_box, ub_box),
+                          x, z, y, cfg)
 
     def escalation_row_ratio(old_coeffs, new_coeffs):
         """Per-QP-row (dual rescale factor, old weight) [B, m_qp] for a
@@ -315,48 +400,57 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
                 torch.cat([old, old.new_zeros(old.shape[0], pad)], -1))
 
     def trust_body(ts: _TrustState, ctx) -> _TrustState:
-        x_state, merit_coeffs, old_merit, model, prep, params, lb, ub = ctx
-        dtype = x_state.dtype
-        # Trust box = variable bounds clamped around the current iterate.
-        lb_box = torch.maximum(lb, x_state - ts.box_size[:, None])
-        ub_box = torch.minimum(ub, x_state + ts.box_size[:, None])
+        x_state, merit_coeffs, old_merit, model, prep, params, lb, ub, B = ctx
         with record_function("sqp.qp"):
-            if use_block:
-                res = solve_qp_block_prepared(
-                    prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_rows],
-                    zb0=ts.z[:, m_rows:], yc0=ts.y[:, :m_rows],
-                    yb0=ts.y[:, m_rows:], cfg=cfg)
-            elif structured:
-                res = solve_qp_structured(
-                    banded_qp(nlp, starts, model, merit_coeffs, lb_box,
-                              ub_box),
-                    ts.x, zc0=ts.z[:, :m_rows], zb0=ts.z[:, m_rows:],
-                    yc0=ts.y[:, :m_rows], yb0=ts.y[:, m_rows:], cfg=cfg)
-            elif sqp.qp_algorithm == "ipm":
-                res = solve_qp_ipm(build_qp(nlp, model, merit_coeffs, lb_box,
-                                            ub_box), ts.x,
-                                   cfg=ipm_config(dtype, cfg.eps_abs))
+            if not structured and sqp.qp_algorithm == "admm":
+                with record_function("qp.prepare"):
+                    dprep = region("qp_prepare", dense_prepare_region,
+                                   (x_state, ts.box_size, lb, ub, model,
+                                    merit_coeffs, ts.x, ts.z, ts.y), B,
+                                   terms=False)
+                res = solve_qp_prepared(dprep, cfg)
             else:
-                res = solve_qp(build_qp(nlp, model, merit_coeffs, lb_box,
-                                        ub_box), ts.x, z0=ts.z, y0=ts.y,
-                               cfg=cfg)
-        new_x = res.x
-        qp_bad = ~torch.isfinite(new_x).all(-1)
-
+                # Trust box = variable bounds clamped around the iterate.
+                lb_box = torch.maximum(lb, x_state - ts.box_size[:, None])
+                ub_box = torch.minimum(ub, x_state + ts.box_size[:, None])
+                if use_block:
+                    res = solve_qp_block_prepared(
+                        prep, lb_box, ub_box, ts.x, zc0=ts.z[:, :m_rows],
+                        zb0=ts.z[:, m_rows:], yc0=ts.y[:, :m_rows],
+                        yb0=ts.y[:, m_rows:], cfg=cfg)
+                elif structured:
+                    res = solve_qp_structured(
+                        banded_qp(nlp, starts, model, merit_coeffs, lb_box,
+                                  ub_box),
+                        ts.x, zc0=ts.z[:, :m_rows], zb0=ts.z[:, m_rows:],
+                        yc0=ts.y[:, :m_rows], yb0=ts.y[:, m_rows:], cfg=cfg)
+                else:
+                    res = solve_qp_ipm(
+                        build_qp(nlp, model, merit_coeffs, lb_box, ub_box),
+                        ts.x, cfg=ipm_config(x_state.dtype, cfg.eps_abs))
         with record_function("sqp.evaluate"):
-            if structured:
-                model_cost = nlp_mod.structured_model_cost_total(nlp, model,
-                                                                 new_x)
-                model_viols = nlp_mod.structured_model_cnt_viols(nlp, model,
-                                                                 new_x)
-            else:
-                model_cost = nlp_mod.model_cost_total(nlp, model, new_x)
-                model_viols = nlp_mod.eval_model_cnt_viols(nlp, model,
-                                                           new_x)
-            model_merit = model_cost + (merit_coeffs * model_viols).sum(-1)
-            new_cost_vals = nlp_mod.eval_exact_costs(nlp, new_x, params)
-            new_cnt_viols = nlp_mod.eval_exact_cnt_viols(nlp, new_x, params)
-            new_merit = merit(new_cost_vals, new_cnt_viols, merit_coeffs)
+            return region("evaluate", evaluate_region,
+                          (ts, merit_coeffs, old_merit, model, params,
+                           res.x, res.z, res.y), B)
+
+    def evaluate_region(ts: _TrustState, merit_coeffs, old_merit, model,
+                        params, new_x, res_z, res_y) -> _TrustState:
+        """The QP step's model and exact merit, and the trust region's
+        accept / shrink / QP-failure bookkeeping."""
+        dtype = new_x.dtype
+        qp_bad = ~torch.isfinite(new_x).all(-1)
+        if structured:
+            model_cost = nlp_mod.structured_model_cost_total(nlp, model,
+                                                             new_x)
+            model_viols = nlp_mod.structured_model_cnt_viols(nlp, model,
+                                                             new_x)
+        else:
+            model_cost = nlp_mod.model_cost_total(nlp, model, new_x)
+            model_viols = nlp_mod.eval_model_cnt_viols(nlp, model, new_x)
+        model_merit = model_cost + (merit_coeffs * model_viols).sum(-1)
+        new_cost_vals = nlp_mod.eval_exact_costs(nlp, new_x, params)
+        new_cnt_viols = nlp_mod.eval_exact_cnt_viols(nlp, new_x, params)
+        new_merit = merit(new_cost_vals, new_cnt_viols, merit_coeffs)
 
         approx_improve = old_merit - model_merit
         exact_improve = old_merit - new_merit
@@ -401,10 +495,11 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
             cnt_viols=torch.where(take, new_cnt_viols, ts.cnt_viols),
             n_qp_solves=ts.n_qp_solves + 1,
             n_func_evals=ts.n_func_evals + 1,
-            z=torch.where(keep, ts.z, res.z),
-            y=torch.where(keep, ts.y, res.y))
+            z=torch.where(keep, ts.z, res_z),
+            y=torch.where(keep, ts.y, res_y))
 
-    def trust_loop(state: _State, model, prep, params, lb, ub) -> _TrustState:
+    def trust_loop(state: _State, model, prep, params, lb, ub,
+                   B: int) -> _TrustState:
         old_merit = merit(state.cost_vals, state.cnt_viols,
                           state.merit_coeffs)
         ts = _TrustState(
@@ -416,7 +511,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
             n_qp_solves=state.n_qp_solves, n_func_evals=state.n_func_evals,
             z=state.z, y=state.y)
         ctx = (state.x, state.merit_coeffs, old_merit, model, prep, params,
-               lb, ub)
+               lb, ub, B)
         while True:
             # Bounded by box shrink like the reference's inner while, plus
             # the static max_trust_iter cap on QP solves per step.
@@ -428,23 +523,18 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
                 return ts
             ts = _put(ts, idx, trust_body(_take(ts, idx), _take(ctx, idx)))
 
-    def sqp_step(state: _State, params, lb, ub, jac_cache,
-                 r_inits) -> _State:
+    def sqp_step(state: _State, params, lb, ub, jac_cache, r_inits,
+                 B: int) -> _State:
         with record_function("sqp.convexify"):
-            if structured:
-                model = nlp_mod.convexify_structured(nlp, state.x, params,
-                                                     jac_cache)
-            else:
-                model = nlp_mod.convexify(nlp, state.x, params, jac_cache)
-        prep, new_minv = None, state.minv
-        if use_block:
+            model, prep, M = region(
+                "convexify", convexify_region,
+                (state.x, params, jac_cache, state.merit_coeffs), B)
+        new_minv = state.minv
+        if ns_refresh:
             with record_function("qp.prepare"):
-                prep = block_prepare(model, state.merit_coeffs, state.x,
-                                     minv0=state.minv if ns_refresh
-                                     else None)
-            if ns_refresh:
-                new_minv = prep.Minv
-        ts = trust_loop(state, model, prep, params, lb, ub)
+                prep = invert_block_system(prep, M, cfg, minv0=state.minv)
+            new_minv = prep.Minv
+        ts = trust_loop(state, model, prep, params, lb, ub, B)
         dtype = state.x.dtype
 
         if n_cnt == 0:
@@ -587,7 +677,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
 
     def solve(x0: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
               params: Any) -> SQPResult:
-        params = dict(params or {})
+        params = {k: _as_param(v, x0) for k, v in (params or {}).items()}
         B, dtype, dev = x0.shape[0], x0.dtype, x0.device
         r_inits = params.pop("restart_inits", None)
         if r_inits is not None:
@@ -595,23 +685,16 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
                                       device=dev).reshape(B, -1, n)
         # getClosestFeasiblePoint (modeling.cpp:260): box-only projection.
         x0 = torch.minimum(torch.maximum(x0, lb), ub)
-        jac_cache = nlp_mod.linear_jacobians(nlp, x0, params)
         coeffs0 = x0.new_full((B, n_cnt), sqp.initial_merit_error_coeff)
-        if ns_refresh:
-            # Seed the carried KKT inverse with one Cholesky at the initial
-            # convexification; later steps refresh it by Newton-Schulz.
-            model0 = nlp_mod.convexify_structured(nlp, x0, params, jac_cache)
-            minv = block_prepare(model0, coeffs0, x0).Minv
-        else:
-            minv = x0.new_zeros(B, 0, 0)
+        with record_function("sqp.init"):
+            jac_cache, minv, cost_vals, cnt_viols = region(
+                "init", init_region, (x0, params, coeffs0), B)
 
         def ints(v):
             return torch.full((B,), v, dtype=torch.int32, device=dev)
 
         state = _State(
-            x=x0,
-            cost_vals=nlp_mod.eval_exact_costs(nlp, x0, params),
-            cnt_viols=nlp_mod.eval_exact_cnt_viols(nlp, x0, params),
+            x=x0, cost_vals=cost_vals, cnt_viols=cnt_viols,
             merit_coeffs=coeffs0,
             box_size=x0.new_full((B,), sqp.initial_trust_box_size),
             merit_increases=ints(0), iter_in_round=ints(0),
@@ -620,7 +703,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
             n_func_evals=ints(1),
             z=x0.new_zeros(B, m_qp), y=x0.new_zeros(B, m_qp),
             minv=minv)
-        lane = (params, lb, ub, jac_cache, r_inits)
+        lane = (params, lb, ub, jac_cache, r_inits, B)
         while True:
             anyone, idx = _live(state.status == SQPStatus.RUNNING)
             if not anyone:

@@ -123,7 +123,7 @@ def cart_pose(tree: KinematicTree, link: str, n_steps: int, timestep: int,
         else _as_pose(target)
     has_tol = upper_tolerance is not None or lower_tolerance is not None
     consts = Consts(R_tcp=R_tcp, p_tcp=p_tcp, R_ttcp=R_ttcp, p_ttcp=p_ttcp,
-                    R_tgt=R_tgt, p_tgt=p_tgt, cfs=cfs,
+                    R_tgt=R_tgt, p_tgt=p_tgt, cfs=cfs, idx=idx,
                     up=np.zeros(6) if upper_tolerance is None
                     else np.asarray(upper_tolerance, float),
                     lo=np.zeros(6) if lower_tolerance is None
@@ -147,7 +147,7 @@ def cart_pose(tree: KinematicTree, link: str, n_steps: int, timestep: int,
         e = transform_error(R_t, p_t, R_src, p_src)
         if has_tol:
             e = apply_tolerances(e, consts.get("lo", q), consts.get("up", q))
-        e = e[..., idx.tolist()]
+        e = e[..., consts.get("idx", q)]
         return e if is_cost else e * consts.get("cfs", q)
 
     return _pose_term(name, rows_q, is_cost, cfs, len(idx), timestep,
@@ -171,7 +171,7 @@ def dynamic_cart_pose(tree: KinematicTree, source_link: str,
     R_tcp, p_tcp = _as_pose(tcp)
     R_ttcp, p_ttcp = _as_pose(target_tcp)
     consts = Consts(R_tcp=R_tcp, p_tcp=p_tcp, R_ttcp=R_ttcp, p_ttcp=p_ttcp,
-                    cfs=cfs)
+                    cfs=cfs, idx=idx)
     name = name or f"dyn_cart_pose_{source_link}_{target_link}_t{timestep}"
 
     def rows_q(q, params):
@@ -180,7 +180,7 @@ def dynamic_cart_pose(tree: KinematicTree, source_link: str,
                            consts.get("R_tcp", q), consts.get("p_tcp", q))
         R_t, p_t = compose(R[..., tgt_id, :, :], p[..., tgt_id, :],
                            consts.get("R_ttcp", q), consts.get("p_ttcp", q))
-        e = transform_error(R_t, p_t, R_s, p_s)[..., idx.tolist()]
+        e = transform_error(R_t, p_t, R_s, p_s)[..., consts.get("idx", q)]
         return e if is_cost else e * consts.get("cfs", q)
 
     return _pose_term(name, rows_q, is_cost, cfs, len(idx), timestep,
@@ -265,7 +265,7 @@ def cart_line(tree: KinematicTree, link: str, n_steps: int, timestep: int,
     R2, p2 = _as_pose(line_end)
     R_tcp, p_tcp = _as_pose(tcp)
     consts = Consts(R1=R1, R2=R2, p1=p1, p2=p2, R_tcp=R_tcp, p_tcp=p_tcp,
-                    cfs=cfs)
+                    cfs=cfs, idx=idx)
     name = name or f"cart_line_{link}_t{timestep}"
 
     def rows_q(q, params):
@@ -282,7 +282,8 @@ def cart_line(tree: KinematicTree, link: str, n_steps: int, timestep: int,
         rv = rotvec_from_matrix(Ra.transpose(-1, -2) @ Rb)
         angle = torch.linalg.vector_norm(rv) + 1e-12
         R_line = Ra @ axis_angle_matrix(rv / angle, t * angle)
-        e = transform_error(R_line, p_line, R_src, p_src)[..., idx.tolist()]
+        e = transform_error(R_line, p_line, R_src, p_src)[
+            ..., consts.get("idx", q)]
         return e if is_cost else e * consts.get("cfs", q)
 
     return _pose_term(name, rows_q, is_cost, cfs, len(idx), timestep,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trajopt_tpu_torch.sqp.nlp import Kind, TermSet, as_like
+from trajopt_tpu_torch.sqp.nlp import Consts, Kind, TermSet, as_like
 
 _STENCILS = {
     "pos": (np.array([1.0]), 0),
@@ -23,12 +23,13 @@ _STENCILS = {
 }
 
 
-def _resolve(spec, params, n_dof, like, default):
-    """[n_dof] constant or [B, n_dof] per-lane value."""
+def _resolve(spec, params, n_dof, like, default, owner):
+    """[n_dof] constant (kept on ``owner``) or [B, n_dof] per-lane value
+    (a params key)."""
     if spec is None:
         spec = default
     v = params[spec] if isinstance(spec, str) else spec
-    v = as_like(v, like)
+    v = as_like(v, like, owner)
     return v if v.dim() == 2 else torch.broadcast_to(v, (n_dof,))
 
 
@@ -87,23 +88,27 @@ def joint_term(deriv: str, is_cost: bool, n_steps: int, n_dof: int, *,
     band_width = (span + 1) * n_dof_total
     base_starts = np.repeat(np.arange(first, first + n_t) * n_dof_total,
                             n_dof)
-    rows = np.arange(n_t * n_dof)
     j_idx = np.tile(np.arange(n_dof), n_t)
+    # the band columns of each stencil tap k, one row a (step, dof)
+    taps = Consts(rows=np.arange(n_t * n_dof),
+                  cols=np.stack([k * n_dof_total + j_idx
+                                 for k in range(len(stencil))]))
 
     def coeff(params, like):
-        return _resolve(coeffs, params, n_dof, like, np.ones(n_dof))
+        return _resolve(coeffs, params, n_dof, like, np.ones(n_dof), taps)
 
     def banded(c, x):
         """[B, n_t * n_dof, band_width] windows with per-dof coeffs."""
         W = x.new_zeros(x.shape[0], n_t * n_dof, band_width)
         ct = torch.tile(c, (n_t,))
+        rows, cols = taps.get("rows", x), taps.get("cols", x)
         for k, sv in enumerate(stencil):
-            W[:, rows, k * n_dof_total + j_idx] = sv * ct
+            W[:, rows, cols[k]] = sv * ct
         return W
 
     def values(x, params):
         v = _deriv_rows(x, n_steps, n_dof_total, n_dof, deriv, first, last)
-        t = _resolve(targets, params, n_dof, x, np.zeros(n_dof))
+        t = _resolve(targets, params, n_dof, x, np.zeros(n_dof), taps)
         return v - t[..., None, :]
 
     if not has_tols:
@@ -132,8 +137,8 @@ def joint_term(deriv: str, is_cost: bool, n_steps: int, n_dof: int, *,
     def fn(x, params):
         diff = values(x, params)
         c = coeff(params, x)[..., None, :]
-        up = _resolve(upper_tols, params, n_dof, x, np.zeros(n_dof))
-        lo = _resolve(lower_tols, params, n_dof, x, np.zeros(n_dof))
+        up = _resolve(upper_tols, params, n_dof, x, np.zeros(n_dof), taps)
+        lo = _resolve(lower_tols, params, n_dof, x, np.zeros(n_dof), taps)
         upper_rows = (diff - up[..., None, :]) * c
         lower_rows = (lo[..., None, :] - diff) * c
         B = x.shape[0]

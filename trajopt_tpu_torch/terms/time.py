@@ -56,9 +56,10 @@ def joint_vel_time(n_steps: int, n_dof: int, *, is_cost: bool = True,
         q = m[..., :n_dof]
         inv_dt = m[..., n_dof]
         zeros = np.zeros(n_dof)
-        t = _resolve(targets, params, n_dof, x, zeros)[..., None, :]
-        up = _resolve(upper_tols, params, n_dof, x, zeros)[..., None, :]
-        lo = _resolve(lower_tols, params, n_dof, x, zeros)[..., None, :]
+        # constants are kept on this function, which lives with the term
+        t = _resolve(targets, params, n_dof, x, zeros, rows)[..., None, :]
+        up = _resolve(upper_tols, params, n_dof, x, zeros, rows)[..., None, :]
+        lo = _resolve(lower_tols, params, n_dof, x, zeros, rows)[..., None, :]
         vel = (q[:, first + 1:last + 1] - q[:, first:last]) * \
             inv_dt[:, first + 1:last + 1, None]
         upper = vel - t - up
@@ -73,7 +74,7 @@ def joint_vel_time(n_steps: int, n_dof: int, *, is_cost: bool = True,
                        weight_fn=_tiled_weight(coeffs, n_dof, 2 * n_t))
 
     def fn(x, params):
-        c = _resolve(coeffs, params, n_dof, x, np.ones(n_dof))
+        c = _resolve(coeffs, params, n_dof, x, np.ones(n_dof), rows)
         return rows(x, params) * torch.tile(c, (2 * n_t,))
 
     return TermSet(name, Kind.CNT_INEQ if has_tols else Kind.CNT_EQ, fn,
@@ -105,7 +106,7 @@ def joint_acc_time(n_steps: int, n_dof: int, *, is_cost: bool = True,
                        weight_fn=_tiled_weight(coeffs, n_dof, n_t))
 
     def fn(x, params):
-        c = _resolve(coeffs, params, n_dof, x, np.ones(n_dof))
+        c = _resolve(coeffs, params, n_dof, x, np.ones(n_dof), rows)
         return rows(x, params) * torch.tile(c, (n_t,))
 
     return TermSet(name, Kind.CNT_EQ, fn, n_rows)

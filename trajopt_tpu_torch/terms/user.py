@@ -115,4 +115,4 @@ def user_defined_term(error_fn: Callable, n_steps: int, n_dof: int, *,
                    jac_fn=lambda x, p: banded_to_dense(banded_jac(x, p),
                                                        band_starts, n),
                    banded_jac=banded_jac, band_starts=band_starts,
-                   band_width=n_dof_total)
+                   band_width=n_dof_total, user_code=True)
