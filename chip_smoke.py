@@ -4,8 +4,9 @@ Phases, each of which must pass:
 
 1. the card: its name and power limit, the torch/CUDA versions and the
    TF32 settings (all off);
-2. build the hand-written kernels ``csrc/admm_block_chunk.cu`` and
-   ``csrc/admm_dense_chunk.cu`` with nvcc, both at once;
+2. build the hand-written kernels ``csrc/admm_block_chunk.cu``,
+   ``csrc/admm_dense_chunk.cu`` and ``csrc/convex_narrowphase.cu`` with
+   nvcc, all at once (``-Xptxas -v``: registers and spills);
 3. hold the block kernel against its plain PyTorch version at the
    flagship QP shapes (T 30, D 8, K 2, R 40, B 256, 150 iterations), on
    seeded data with hard, penalty and inert padded rows and one lane with
@@ -21,6 +22,12 @@ Phases, each of which must pass:
    cluster size, the shared memory per block and how many clusters the
    card holds at once; one adaptive-rho ``solve_qp`` of that QP on the
    card against float64;
+4b. hold the convex search kernel against its plain version on every
+   call of the unified flagship's first convexification (B = 256,
+   float32; the largest call, the swept moving-vs-static group of 697,856
+   queries, in float64 too): the queries whose selection differs and the
+   distance each gives; time both on the largest call and compute the
+   bound;
 5. small problems (10 steps, 3 lanes) on the card (float32, kernels)
    against the CPU (plain versions): for pr2ish one QP step (convexify,
    prepare, 450 ADMM iterations) against float64, and a whole solve of
@@ -58,16 +65,22 @@ Phases, each of which must pass:
    cycles of the arm7 workload (B = 128, goal +0.01 rad a cycle).
 11. the rest of the collision world: (a) the flagship under
    ``unify_narrowphase`` (``pr2ish_table_problem(..., unify_narrowphase=
-   True)``: all 91 pairs through the convex GJK + SAT kernel, B = 256,
-   block path) through the same checks as phase 6, verified with the
+   True)``: all 91 pairs through the convex GJK + SAT narrowphase and its
+   search kernel, B = 256, block path; the kernel's launches over the
+   first solve, which makes the captures) through the same checks as
+   phase 6, verified with the
    primitive scene's swept check, its distances held against the
    primitive kernels' on the result (waypoints: within 5e-4 where the
    primitive value is > -0.02; the LVS sub-segments reported), and the
    profiled repeat's device time inside the convex narrowphase
-   (``collision.convex``) with its top kernels; (b) the unified scene's
+   (``collision.convex``) with its top kernels and the search kernel's
+   traced launches; (b) the unified scene's
    ``distances_and_jac`` and ``swept_distances_and_jac`` on the card in
    float64 against the CPU (and float32 beside the CPU's own float32
-   error); (c) small float32 solves on the dense path, card against CPU
+   error), and with the search kernel against the plain search (d within
+   1e-10, Jacobians within 1e-8); (c) small float32 solves on the dense
+   path (the mesh arm's hull pairs through the search kernel), card
+   against CPU
    with equal statuses: arm6 on its shelf, the mesh arm (hulls of binary
    STL links written to a temporary directory, through
    ``scene_from_urdf`` with an SRDF), arm7 against an SDF grid of its
@@ -138,6 +151,8 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch import ifopt
+from trajopt_tpu_torch.collision import convex as cvx
+from trajopt_tpu_torch.collision import fused_convex as fc
 from trajopt_tpu_torch.collision.check import check_trajectory
 from trajopt_tpu_torch.collision.geometry import point_box_sdf
 from trajopt_tpu_torch.collision.sdf_grid import bake_sdf
@@ -360,11 +375,13 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Both kernels at once, one nvcc each."""
+    """The three kernels at once, one nvcc each (``-Xptxas -v``: registers,
+    shared memory and spills of each)."""
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda mod: mod.build(verbose=True), (fb, fd)))
-    print(f"built {fb.SOURCE.name} and {fd.SOURCE.name} for sm_90a in "
+    mods = (fb, fd, fc)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda mod: mod.build(verbose=True), mods))
+    print(f"built {', '.join(m.SOURCE.name for m in mods)} for sm_90a in "
           f"{time.time() - t0:.1f} s")
 
 
@@ -740,6 +757,111 @@ def phase_dense_kernel_check(dev) -> dict:
             "max_abs_err": max(err_syn, err_main), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes the chunk
+            "library_ms": None}
+
+
+# The convex search kernel against its plain version on the card.  Both
+# make the same operations in the same order (explicit fma where the plain
+# version calls addcmul), so a query whose selection differs is a near
+# tie: two candidates (subsets, support vertices, SAT axes) equal up to
+# rounding.  Such a query's distance may move by the tie's size, at most
+# CONVEX_TIE_TOL in float32 (scenes of metres; the certificate's own
+# threshold is 1e-4 x scale) and F64_D_TOL in float64.
+CONVEX_TIE_TOL = 1e-5
+F64_D_TOL, F64_J_TOL = 1e-10, 1e-8
+
+
+def convex_main_inputs(dev) -> list:
+    """The search's inputs on the unified flagship's first convexification
+    (B = 256 straight-line inits, seed 0), one tuple per call."""
+    prob, _ = unified_problem(device=dev)
+    nlp = prob.build()
+    inits, goals = pr2ish_table_batch(0, B, 30, device=dev)
+    x = inits.reshape(B, -1)
+    params = {"goal": goals}
+    calls = []
+    search = fc.select
+
+    def record(*args):
+        calls.append(tuple(t.detach().clone() for t in args[:5]))
+        return search(*args)
+
+    fc.select = record
+    try:
+        nlp_mod.convexify_structured(
+            nlp, x, params, nlp_mod.linear_jacobians(nlp, x, params))
+    finally:
+        fc.select = search
+    return calls
+
+
+def hold_selection(label: str, inputs) -> float:
+    """Kernel against plain search on ``inputs``: the queries whose
+    selection differs, and the distances both give through the epilogue
+    (radii 0).  Fails when a distance differs by more than the tie
+    tolerance of the dtype; returns max |difference| of lam, z and d."""
+    got = fc.select_cuda(*inputs)
+    ref = fc.select_plain(*inputs)
+    diff = torch.zeros(got.k.shape[:-1], dtype=torch.bool, device=got.k.device)
+    for a, b in zip(got, ref):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+            if a.dtype.is_floating_point else a == b
+        diff |= ~same.reshape(*diff.shape, -1).all(-1)
+    Va, Vb, axes, _, cax = inputs
+    d = [cvx._epilogue(Va, 0.0, Vb, 0.0, axes, cax, sel) for sel in (got, ref)]
+    dd = (d[0] - d[1]).abs()
+    errs = [float((got.lam - ref.lam).abs().max()),
+            float((got.z - ref.z).abs().max()), float(dd.max())]
+    n_diff = int(diff.sum())
+    tol = CONVEX_TIE_TOL if Va.dtype == torch.float32 else F64_D_TOL
+    print(f"{label}: {diff.numel()} queries, {n_diff} selections differ "
+          f"(max |dd| among them "
+          f"{float(dd[diff].max()) if n_diff else 0.0:.3e}, tie tolerance "
+          f"{tol:.0e}); max |dlam| {errs[0]:.3e}, |dz| {errs[1]:.3e}, |dd| "
+          f"{errs[2]:.3e}")
+    if not errs[2] <= tol:
+        raise SystemExit(f"{label}: the kernel's distances differ from the "
+                         f"plain search's by {errs[2]:.3e}")
+    return max(errs)
+
+
+def phase_convex_kernel_check(dev) -> dict:
+    """The convex search kernel on the unified flagship's first
+    convexification at B = 256: every call's inputs held against the plain
+    search (float32, and the largest call in float64), the largest call
+    (the swept moving-vs-static group) timed beside the plain search, with
+    its bound."""
+    calls = convex_main_inputs(dev)
+    errs = []
+    for i, inp in enumerate(calls):
+        Va, Vb, axes = inp[:3]
+        errs.append(hold_selection(
+            f"convex search call {i} (queries {tuple(Va.shape[:-2])}, A "
+            f"{Va.shape[-2]}, B {Vb.shape[-2]}, K {axes.shape[-2]} + 2)",
+            inp))
+    main = max(calls, key=lambda c: c[0][..., 0, 0].numel() * c[2].shape[-2])
+    hold_selection("convex search, largest call, float64",
+                   tuple(t.double() if t.is_floating_point() else t
+                         for t in main))
+    Va, Vb, axes = main[:3]
+    N = Va[..., 0, 0].numel()
+    A, Bv, K = Va.shape[-2], Vb.shape[-2], axes.shape[-2]
+    ms = cuda_ms(lambda: fc.select_cuda(*main), 20)
+    plain_ms = cuda_ms(lambda: fc.select_plain(*main), 2)
+    flops = N * fc.select_flops(A, Bv, K)
+    nbytes = fc.select_bytes(*main)
+    bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
+    print(f"convex search kernel on the largest call, {N} queries (A {A}, "
+          f"B {Bv}, K {K} + 2): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP "
+          f"-> {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); "
+          f"roofline share {bound_ms / ms:.2%}")
+    return {"name": "convex_select", "route": "cuda",
+            "source": "trajopt_tpu_torch/csrc/convex_narrowphase.cu",
+            "replaces": "trajopt_tpu/collision/convex.py:255",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes the search
             "library_ms": None}
 
 
@@ -1341,6 +1463,11 @@ def profile_solve(label: str, run, kernel: str, launches: int) -> None:
         print(f"{label}: {kernel} in the path: {launches} launches "
               f"counted, {n_k} traced, {ms_k:.3f} ms device time "
               f"({ms_k / max(n_k, 1):.4f} ms each)")
+        n_c, ms_c = trace.kernel_time(fc.KERNEL)
+        if n_c:
+            print(f"{label}: {fc.KERNEL}: {n_c} launches traced in the "
+                  f"solve, {ms_c:.3f} ms device time "
+                  f"({ms_c / n_c:.4f} ms each)")
         print(f"{label}: top device time by kernel: {trace.top()}")
         if trace.ranges["collision.convex"]:
             ks = trace.inside("collision.convex")
@@ -1351,6 +1478,9 @@ def profile_solve(label: str, run, kernel: str, launches: int) -> None:
                   f"({100 * dev / max(total, 1):.2f} %), {len(ks)} device "
                   f"spans in {len(trace.ranges['collision.convex'])} "
                   f"calls; its top: {trace.top(among=ks)}")
+            if n_c == 0:
+                raise SystemExit(f"{label}: the profiled solve ran the "
+                                 f"convex narrowphase without its kernel")
     print(f"{label}: reading the profile took {time.time() - t0:.1f} s")
 
 
@@ -1629,10 +1759,16 @@ def unified_problem(device=None):
                                 unify_narrowphase=True, device=device)
 
 
-def phase_unified(smi: str) -> int:
+def phase_unified(smi: str) -> tuple[int, int]:
     """(a) The flagship under ``unify_narrowphase``: all 91 pairs through
-    the convex GJK + SAT kernel, B = 256, block path; checked with the
-    primitive scene's swept check."""
+    the convex GJK + SAT narrowphase, B = 256, block path; checked with the
+    primitive scene's swept check.  The search kernel runs inside the
+    captured regions (init, convexify, evaluate), where its wrapper is
+    called while a region is warmed up and captured, not when it is
+    replayed: its launches are counted over the path's first solve (which
+    makes the captures) and traced by name in the profiled repeat.
+    Returns (block kernel launches of the measured solve, search kernel
+    launches of the first solve)."""
     prob, uscene = unified_problem()
     _, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
 
@@ -1660,11 +1796,31 @@ def phase_unified(smi: str) -> int:
             raise SystemExit(f"unified flagship: discrete distances differ "
                              f"from the primitive kernels' by {err:.3e}")
 
-    return drive_path("unified flagship",
-                      prob.make_solve(flagship_params(), structured=True),
-                      scene, pr2ish_table_batch, B, 30, 8, fb.COUNTER,
-                      "admm_block_chunk_kernel", smi, MIN_VERIFIED,
-                      after=against_primitive)
+    solve = prob.make_solve(flagship_params(), structured=True)
+    inits, goals = pr2ish_table_batch(1, B, 30)
+    torch.cuda.synchronize()
+    fc.COUNTER.reset()
+    aot_cache.STATS.reset()
+    t0 = time.time()
+    solve(inits, {"goal": goals})
+    torch.cuda.synchronize()
+    convex = fc.COUNTER.launches
+    print(f"unified flagship: first solve {time.time() - t0:.2f} s "
+          f"({aot_cache.STATS}); {fc.KERNEL} launched {convex} times")
+    if convex <= 0:
+        raise SystemExit("unified flagship: the convex search kernel never "
+                         "launched")
+    block = drive_path("unified flagship", solve, scene, pr2ish_table_batch,
+                       B, 30, 8, fb.COUNTER, "admm_block_chunk_kernel", smi,
+                       MIN_VERIFIED, after=against_primitive)
+    # A replay records no host range inside its graph, so the narrowphase's
+    # share of device time is read from an eager profile (the same device
+    # work as the captured solve's).
+    with aot_cache.eager():
+        profile_solve("unified flagship eager",
+                      lambda: solve(inits, {"goal": goals}),
+                      "admm_block_chunk_kernel", block)
+    return block, convex
 
 
 def narrowphase_f64(dev, dtype, n: int = 16, seed: int = 11):
@@ -1684,13 +1840,46 @@ def narrowphase_f64(dev, dtype, n: int = 16, seed: int = 11):
     return [t.double().cpu() for t in out]
 
 
+@contextlib.contextmanager
+def plain_search():
+    """Within the block the convex narrowphase runs the plain search on
+    any device (and counts no launch)."""
+    saved = fc.select
+    fc.select = fc.select_plain
+    try:
+        yield
+    finally:
+        fc.select = saved
+
+
 def phase_unified_f64() -> None:
     """(b) The convex narrowphase on the card against the CPU, float64 (and
-    float32 beside the CPU's own float32 error)."""
+    float32 beside the CPU's own float32 error); on the card with the
+    search kernel against the plain search, float64: d within F64_D_TOL,
+    the Jacobians within F64_J_TOL."""
     names = ("d", "J", "swept d", "swept J0", "swept J1")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     ref = narrowphase_f64(cpu, torch.float64)
+    fc.COUNTER.reset()
     got = narrowphase_f64(cuda, torch.float64)
+    launches = fc.COUNTER.launches
+    with plain_search():
+        plain = narrowphase_f64(cuda, torch.float64)
+    kp = [float((g - p).abs().max()) for g, p in zip(got, plain)]
+    print(f"unified narrowphase float64 on the card, search kernel "
+          f"({launches} launches) vs plain search max |diff|: " + ", ".join(
+              f"{n} {e:.2e}" for n, e in zip(names, kp))
+          + f" (tolerances d {F64_D_TOL:.0e}, J {F64_J_TOL:.0e}); plain "
+          f"search vs CPU: " + ", ".join(
+              f"{n} {float((p - r).abs().max()):.2e}"
+              for n, p, r in zip(names, plain, ref)))
+    if launches <= 0:
+        raise SystemExit("unified narrowphase float64: the search kernel "
+                         "never launched")
+    if not (max(kp[0], kp[2]) <= F64_D_TOL
+            and max(kp[1], kp[3], kp[4]) <= F64_J_TOL):
+        raise SystemExit("unified narrowphase float64: the search kernel and "
+                         "the plain search differ")
     got32 = narrowphase_f64(cuda, torch.float32)
     cpu32 = narrowphase_f64(cpu, torch.float32)
     errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
@@ -1786,24 +1975,28 @@ def collision_scene_solve(path: str, dev, mesh_dir: str):
                               res.x)]
 
 
-def phase_collision_scenes() -> int:
+def phase_collision_scenes() -> tuple[int, int]:
     """(c) Small solves of the other collision scenes, card (float32,
     kernels) against the CPU (float32, plain versions): equal statuses.
-    Returns the dense kernel's launches on the card."""
+    The mesh arm's hull pairs run the convex search kernel.  Returns the
+    dense kernel's and the search kernel's launches on the card."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    launches = 0
+    launches = convex = 0
     with tempfile.TemporaryDirectory() as tmp:
         write_mesh_arm(tmp)
         for path in ("arm6", "mesh", "arm7 sdf", "simple"):
             fd.COUNTER.reset()
+            fc.COUNTER.reset()
             t0 = time.time()
             gpu = collision_scene_solve(path, cuda, tmp)
             t_card = time.time() - t0
             launches += fd.COUNTER.launches
+            convex += fc.COUNTER.launches
             ref = collision_scene_solve(path, cpu, tmp)
             names = ("status", "SQP iterations", "QP solves")
             print(f"collision scene solve ({path}, 3 lanes, float32): card "
                   f"{t_card:.2f} s, {fd.COUNTER.launches} dense kernel "
+                  f"launches, {fc.COUNTER.launches} convex search kernel "
                   f"launches; card vs CPU " + ", ".join(
                       f"{n} {g.tolist()} vs {c.tolist()}"
                       for n, g, c in zip(names, gpu, ref))
@@ -1811,10 +2004,13 @@ def phase_collision_scenes() -> int:
             if fd.COUNTER.launches == 0:
                 raise SystemExit(f"{path} solve did not launch the dense "
                                  f"kernel")
+            if path == "mesh" and fc.COUNTER.launches == 0:
+                raise SystemExit("mesh solve did not launch the convex "
+                                 "search kernel")
             if not torch.equal(gpu[0], ref[0]):
                 raise SystemExit(f"{path} solve: statuses differ between "
                                  f"card and CPU")
-    return launches
+    return launches, convex
 
 
 # Phase 12: the PR2 planning problem through the ifopt model on the dense
@@ -2231,23 +2427,26 @@ def main() -> int:
     timed("build", phase_build)
     block = timed("block kernel", phase_kernel_check, dev)
     dense_k = timed("dense kernel", phase_dense_kernel_check, dev)
+    convex = timed("convex kernel", phase_convex_kernel_check, dev)
     timed("small references", phase_small_reference)
     block["launches"] = timed("flagship", phase_flagship, smi)
     dense_k["launches"] = timed("arm7", phase_arm7, smi)
     block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi)
     block["family_launches"] = timed("family", phase_family, smi)
     dense_k.update(timed("json front end", phase_json, smi))
-    block["unified_launches"] = timed("unified flagship", phase_unified, smi)
+    block["unified_launches"], convex["launches"] = timed(
+        "unified flagship", phase_unified, smi)
     timed("unified narrowphase float64", phase_unified_f64)
-    dense_k["collision_scene_launches"] = timed("collision scenes",
-                                                phase_collision_scenes)
+    (dense_k["collision_scene_launches"],
+     convex["collision_scene_launches"]) = timed("collision scenes",
+                                                 phase_collision_scenes)
     dense_k.update(timed("ifopt and host paths", phase_ifopt_host, smi))
     timed("captured against eager", phase_captured, smi)
     dense_k["max_abs_err"] = max(dense_k["max_abs_err"],
                                  dense_k["json_max_abs_err"],
                                  dense_k["ifopt_max_abs_err"])
     print(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [block, dense_k]}))
+    print(json.dumps({"kernels": [block, dense_k, convex]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,9 @@ GJK witness -- values to 1e-10 and envelope gradients (w.r.t. vertices
 and axes) to 1e-9; the GJK weights, the 4x4 subset solves and
 ``hull_of`` equal; the unified pr2ish scene's and a hull scene's four
 query functions to 1e-9 with equal groups; a call split over lanes equal
-to the unsplit call bit for bit.
+to the unsplit call bit for bit.  The search of ``collision/fused_convex.py``
+(the kernel's plain version) on the same battery: its GJK weights and its
+SAT gap equal the JAX functions', and the wrapper's dispatch.
 """
 
 import jax
@@ -24,6 +26,7 @@ from trajopt_tpu.models import robots as jrobots
 from trajopt_tpu.models.benchmarks import (ARM7_GOAL, ARM7_HOME,
                                            PR2ISH_GOAL, PR2ISH_HOME)
 from trajopt_tpu_torch.collision import convex as tcvx
+from trajopt_tpu_torch.collision import fused_convex as tfc
 from trajopt_tpu_torch.collision import world as tworld
 from trajopt_tpu_torch.collision.world import CollisionScene as TScene
 from trajopt_tpu_torch.models import robots as trobots
@@ -166,6 +169,94 @@ def test_gjk_weights_match_jax(battery):
                                atol=1e-12)
     np.testing.assert_allclose(wb.numpy(), np.asarray(wb_j), rtol=0,
                                atol=1e-12)
+
+
+def _selection(args):
+    """The plain search's inputs and result on the battery (torch)."""
+    Va, _, Vb, _, axes, valid = (torch.as_tensor(a) for a in args)
+    cax = Va.mean(-2) - Vb.mean(-2)
+    return (Va, Vb, axes, valid, cax), tfc.select_plain(Va, Vb, axes, valid,
+                                                        cax)
+
+
+def test_selection_gjk_weights_match_jax(battery):
+    """The search's best simplex, as vertex weights, equals JAX
+    ``_gjk_weights``; its witness vector is the weights' witness."""
+    args, _, _ = battery
+    (Va, Vb, _, _, _), sel = _selection(args)
+    with jax.disable_jit():
+        wa_j, wb_j = jax.vmap(jcvx._gjk_weights)(jnp.asarray(args[0]),
+                                                 jnp.asarray(args[2]))
+    for idx, V, w_j in ((sel.idA, Va, wa_j), (sel.idB, Vb, wb_j)):
+        w = tcvx._slot_weights(idx, sel.lam, V.shape[-2])
+        np.testing.assert_allclose(w.numpy(), np.asarray(w_j), rtol=0,
+                                   atol=1e-12)
+    z_j = np.einsum("bn,bnk->bk", np.asarray(wa_j), args[0]) \
+        - np.einsum("bn,bnk->bk", np.asarray(wb_j), args[2])
+    np.testing.assert_allclose(sel.z.numpy(), z_j, rtol=0, atol=1e-12)
+
+
+def test_selection_sat_gap_matches_jax(battery):
+    """The winning gap recomputed from the search's axis and vertices
+    equals JAX ``_sat_depth`` over the same K + 2 axes, on the separated
+    and on the penetrating pairs."""
+    args, _, _ = battery
+    (Va, Vb, axes, valid, cax), sel = _selection(args)
+    full = tcvx._all_axes(axes, cax, sel.z)
+    fvalid = torch.cat([valid, torch.ones(len(valid), 2, dtype=torch.bool)],
+                       -1)
+    gap = tcvx._sat_gap(Va, Vb, tcvx._gather_rows(full, sel.k)[..., 0, :],
+                        sel.flip, sel.ia, sel.ib)
+    with jax.disable_jit():
+        gap_j = np.asarray(jax.vmap(jcvx._sat_depth)(
+            *(jnp.asarray(t.numpy()) for t in (Va, Vb, full, fvalid))))
+    assert (gap_j > 0).sum() >= 10 and (gap_j < -1e-3).sum() >= 6
+    np.testing.assert_allclose(gap.numpy(), gap_j, rtol=0, atol=VAL_TOL)
+    np.testing.assert_allclose(
+        tcvx._sat_depth(Va, Vb, full, fvalid).numpy(), gap_j, rtol=0,
+        atol=VAL_TOL)
+
+
+def test_selection_dispatch(battery):
+    """CPU tensors take the plain search (no launch counted); meta tensors
+    get the outputs' shapes; the kernel's launcher refuses CPU tensors
+    before it builds anything."""
+    args, _, _ = battery
+    inputs, plain = _selection(args)
+    before = tfc.COUNTER.launches
+    got = tfc.select(*inputs)
+    assert tfc.COUNTER.launches == before
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    meta = tfc.select(*(t.to("meta") for t in inputs))
+    for a, b in zip(meta, plain):
+        assert a.device.type == "meta"
+        assert (a.shape, a.dtype) == (b.shape, b.dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.select_cuda(*inputs)
+
+
+def test_batch_layout_reads_broadcasts_as_strides():
+    """The kernel's batch indexing: size-1 dims dropped, neighbours every
+    tensor steps through as one merged, broadcast dims kept at stride 0,
+    more than MAX_DIMS strided dims refused."""
+    Va = torch.zeros(3, 1, 5, 7, 4, 3)
+    Vb = torch.zeros(5, 7, 8, 3).expand(3, 1, 5, 7, 8, 3)
+    valid = torch.ones(5, 7, 2, dtype=torch.bool).expand(3, 1, 5, 7, 2)
+    sizes, strides = tfc._batch_layout(Va.shape[:-2], [Va, Vb, valid])
+    assert sizes == [3, 35]
+    assert strides == [[420, 12], [0, 24], [0, 2]]
+    steps = valid[:, :, :1].expand(3, 1, 5, 7, 2)    # one mask a pair
+    sizes, strides = tfc._batch_layout(Va.shape[:-2], [Va, Vb, steps])
+    assert sizes == [3, 5, 7]
+    assert strides == [[420, 84, 12], [0, 168, 24], [0, 0, 2]]
+    odd = torch.zeros(2, 2, 2, 2, 2, 6, 3)[..., ::2, :]
+    sizes, strides = tfc._batch_layout(odd.shape[:-2], [odd])
+    assert sizes == [32] and strides == [[18]]
+    flipped = torch.zeros(2, 2, 2, 2, 2, 4, 3).permute(4, 3, 2, 1, 0, 5, 6)
+    with pytest.raises(ValueError, match="at most"):
+        tfc._batch_layout(flipped.shape[:-2], [flipped])
+    assert tfc.select_flops(4, 8, 17) > 25_000
 
 
 def test_simplex_subproblem_matches_jax():

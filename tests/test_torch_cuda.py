@@ -1,7 +1,8 @@
-"""Port on the card: the hand-written chunk kernels (block and dense)
-against their plain versions, the wrappers' checks and launch counts, a
-small solve of each QP path, and the convex narrowphase and an SDF grid's
-queries against the CPU.
+"""Port on the card: the hand-written chunk kernels (block and dense) and
+the convex search kernel against their plain versions, the wrappers'
+checks and launch counts, a small solve of each QP path, the convex
+narrowphase and an SDF grid's queries against the CPU, and captured
+regions against eager runs.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -14,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from trajopt_tpu_torch.collision import convex as tcvx
+from trajopt_tpu_torch.collision import fused_convex as tfc
 from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
                                                  arm_table_problem,
                                                  pr2ish_table_batch,
@@ -518,6 +521,164 @@ def test_convex_narrowphase_on_the_card(cuda):
            zip(_narrowphase(cpu, torch.float32), ref)]
     for g, r, e in zip(_narrowphase(cuda, torch.float32), ref, own):
         assert float((g - r).abs().max()) <= 2 * float(e) + 1e-6
+
+
+def _convex_battery():
+    """The hull pairs of the JAX package's convex batteries
+    (tests/test_torch_convex.py ``_pairs``), built with the port alone:
+    vertex-form primitives, boxes at four offsets, separated, penetrating
+    and grazing random hulls.  Returns (Va, Vb, axes, valid) as float64
+    numpy arrays."""
+    def box(half, center=(0.0, 0.0, 0.0)):
+        return np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                         for sz in (-1, 1)]) * half + np.asarray(center)
+
+    pairs = [(np.zeros((1, 3)), np.array([[2.0, 0, 0]]), [], []),
+             (np.zeros((1, 3)), np.array([[0.6, 0, 0]]), [], []),
+             (np.array([[-0.3, 0.0, 0.0], [0.3, 0.0, 0.0]]),
+              box(0.2, [0.0, 0.0, 1.0]), [np.eye(3)],
+              [np.array([[1.0, 0, 0]]), np.eye(3)])]
+    pairs += [(box(0.5), box(0.5, [off, 0, 0]), [np.eye(3), np.eye(3)],
+               [np.eye(3), np.eye(3)]) for off in (1.6, 1.1, 0.8, 0.5)]
+    for seed, n, shift in ((3, 40, None), (7, 30, 0.3), (11, 40, None)):
+        rng = np.random.default_rng(seed)
+        for _ in range(6):
+            A, Na, Ea = tcvx.hull_of(rng.normal(size=(n, 3)))
+            pts = rng.normal(size=(n, 3))
+            B, Nb, Eb = tcvx.hull_of(pts + (
+                rng.uniform(-shift, shift, size=3) if shift else
+                np.array([4.0 if seed == 3 else 5.0, 0.5, 0.0])))
+            if seed == 11:      # grazing: moved along the GJK witness
+                wa, wb = (w.numpy() for w in tcvx._gjk_weights(
+                    torch.as_tensor(A), torch.as_tensor(B)))
+                z = wa @ A - wb @ B
+                d0 = np.linalg.norm(z)
+                B = B + (d0 - rng.uniform(2e-4, 1e-3)) * z / d0
+            pairs.append((A, B, [Na, Nb], [Ea, Eb]))
+    n_v = max(max(len(a), len(b)) for a, b, _, _ in pairs)
+    rows = []
+    for _, _, normals, edges in pairs:
+        ax = list(normals)
+        if len(edges) == 2:
+            ea, eb = (torch.as_tensor(e) for e in edges)
+            ax.append(tcvx.edge_cross_axes(
+                ea, torch.ones(len(ea), dtype=torch.bool), eb,
+                torch.ones(len(eb), dtype=torch.bool))[0].numpy())
+        rows.append(np.concatenate(ax) if ax else np.zeros((0, 3)))
+    k = max(max(len(r) for r in rows), 1)
+
+    def pad(v, n):
+        return np.pad(v, ((0, n - len(v)), (0, 0)), mode="edge")
+
+    return (np.stack([pad(a, n_v) for a, _, _, _ in pairs]),
+            np.stack([pad(b, n_v) for _, b, _, _ in pairs]),
+            np.stack([pad(r, k) if len(r) else np.zeros((k, 3))
+                      for r in rows]),
+            np.stack([np.arange(k) < len(r) for r in rows]))
+
+
+def _search_inputs(dev, dtype):
+    """The search's inputs (Va, Vb, axes, valid, cax) on the battery and
+    on every call of the unified scene's four queries at 16 seeded
+    configurations (tests/test_torch_cuda.py ``_narrowphase``)."""
+    Va, Vb, axes, valid = (torch.as_tensor(a, device=dev) for a in
+                           _convex_battery())
+    Va, Vb, axes = (t.to(dtype) for t in (Va, Vb, axes))
+    out = [(Va, Vb, axes, valid, Va.mean(-2) - Vb.mean(-2))]
+    search = tfc.select
+
+    def record(*args):
+        out.append(tuple(t.detach().clone() for t in args[:5]))
+        return search(*args)
+
+    tfc.select = record
+    try:
+        _narrowphase(dev, dtype, n=16)
+    finally:
+        tfc.select = search
+    return out
+
+
+def _hold_search(inputs, tol):
+    """Kernel against plain search on ``inputs``: the selections equal but
+    for near ties (at most 1 % of the queries), whose distances through
+    the epilogue agree within ``tol``.  Returns the kernel's result."""
+    got = tfc.select_cuda(*inputs)
+    ref = tfc.select_plain(*inputs)
+    diff = torch.zeros(got.k.shape[:-1], dtype=torch.bool, device=got.k.device)
+    for a, b in zip(got, ref):
+        diff |= (a != b).reshape(*diff.shape, -1).any(-1)
+    Va, Vb, axes, _, cax = inputs
+    d = [tcvx._epilogue(Va, 0.0, Vb, 0.0, axes, cax, sel)
+         for sel in (got, ref)]
+    assert float((d[0] - d[1]).abs().max()) <= tol
+    assert int(diff.sum()) <= 0.01 * diff.numel()
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_convex_search_kernel_matches_plain(cuda, dtype):
+    """The search kernel against its plain version on the JAX batteries
+    and on the unified pr2ish scene's 16 x 91 queries; broadcast inputs
+    (stride 0) give the contiguous inputs' bits; the wrapper counts one
+    launch a call."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    inputs = _search_inputs(cuda, dtype)
+    assert len(inputs) == 5                  # battery, discrete, 3 swept
+    tfc.COUNTER.reset()
+    for inp in inputs:
+        _hold_search(inp, tol)
+    assert tfc.COUNTER.launches == len(inputs)
+    Va, Vb, axes, valid, _ = inputs[0]
+    shift = 0.01 * torch.arange(3, dtype=dtype, device=cuda)[:, None, None,
+                                                              None]
+    lanes = (Va + shift, Vb.expand(3, *Vb.shape), axes.expand(3, *axes.shape),
+             valid.expand(3, *valid.shape))
+    lanes += ((lanes[0].mean(-2) - lanes[1].mean(-2)),)
+    wide = tfc.select_cuda(*lanes)
+    dense = tfc.select_cuda(*(t.contiguous() for t in lanes))
+    for a, b in zip(wide, dense):
+        assert torch.equal(a, b)
+
+
+def test_convex_search_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    Va, Vb, axes, valid = (torch.as_tensor(a, device=cuda) for a in
+                           _convex_battery())
+    cax = Va.mean(-2) - Vb.mean(-2)
+    with pytest.raises(TypeError):
+        tfc.select_cuda(Va.half(), Vb, axes, valid, cax)
+    with pytest.raises(TypeError):
+        tfc.select_cuda(Va, Vb.float(), axes, valid, cax)
+    with pytest.raises(ValueError, match="shape"):
+        tfc.select_cuda(Va, Vb, axes[:-1], valid, cax)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfc.select_cuda(Va, Vb.cpu(), axes, valid, cax)
+
+
+def test_captured_convex_narrowphase_equals_eager(cuda):
+    """A region holding the search kernel (``convex_convex`` on the
+    battery), captured with ``aot_cache.cached_export``, replays equal to
+    its eager run on new inputs; the wrapper is called while the region is
+    warmed up and captured, not when it is replayed."""
+    Va, Vb, axes, valid = (torch.as_tensor(a, device=cuda, dtype=torch.float32
+                                           if a.dtype != bool else None)
+                           for a in _convex_battery())
+
+    def region(va, vb, ax, v):
+        return tcvx.convex_convex(va, 0.05, vb, 0.0, ax, v)
+
+    args = (Va, Vb, axes, valid)
+    f = aot_cache.cached_export(region, args, "convex-search-test", memo={})
+    aot_cache.STATS.reset()
+    tfc.COUNTER.reset()
+    f(*args)
+    captured_at = tfc.COUNTER.launches
+    assert captured_at >= 1 and aot_cache.STATS.captures == 1
+    for step in (0.01, -0.02):
+        moved = (Va + step, Vb, axes, valid)
+        assert torch.equal(f(*moved), region(*moved))
+    assert aot_cache.STATS.replays >= 2
+    assert tfc.COUNTER.launches == captured_at + 2     # the eager runs
 
 
 def test_sdf_query_on_the_card(cuda):

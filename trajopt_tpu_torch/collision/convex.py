@@ -22,6 +22,13 @@ Separation is decided by GJK's certificate (a best-iterate distance above
 ``eps``) or by a SAT separating axis, never by SAT alone.  ``eps`` depends
 on the dtype: ``1e-4 * scale`` in float32, ``1e-11 * scale`` otherwise.
 
+The discrete search -- GJK's best simplex (:func:`_gjk_slots`), the
+witness vector and the SAT winner (:func:`_sat_select`) -- is one function,
+``fused_convex.select``: a hand-written CUDA kernel on CUDA tensors, its
+plain version (built from this module's functions) on CPU tensors.  Only
+the epilogue (:func:`_epilogue`: the witness distance, the winning gap and
+the certificate, from the selected indices) carries gradients.
+
 The ``no_grad`` regions sit exactly where the JAX function has
 ``jax.lax.stop_gradient`` (the GJK loop, the SAT projections, the witness
 axis and ``scale``): autograd through the GJK iterations would give other
@@ -248,36 +255,53 @@ def _witness(V: torch.Tensor, idx: torch.Tensor, lam: torch.Tensor):
     return _wsum(w, _gather_rows(V, order))
 
 
-def _sat_depth(Va, Vb, axes, valid):
-    """Best separating gap over candidate axes: max_k of max(min_b - max_a,
-    min_a - max_b) along axis k (positive: a certified separation; negative:
-    the penetration estimate).  ``valid`` masks padded axis rows.  The
-    winning axis and vertices are chosen under ``no_grad``; the gap is then
-    recomputed from ``axes[k*]``, ``Va[ia*]`` and ``Vb[ib*]`` alone."""
-    with torch.no_grad():
-        ax = axes.detach()
-        pa = _dot3(Va.detach()[..., :, None, :], ax[..., None, :, :])
-        pb = _dot3(Vb.detach()[..., :, None, :], ax[..., None, :, :])
-        nrm_s = torch.sqrt(_sq3(ax) + 1e-24)
-        gap_ba = (pb.amin(-2) - pa.amax(-2)) / nrm_s       # [..., K]
-        gap_ab = (pa.amin(-2) - pb.amax(-2)) / nrm_s
-        gap = torch.maximum(gap_ba, gap_ab)
-        gap = torch.where(valid & (nrm_s > 1e-9), gap,
-                          torch.full_like(gap, -float("inf")))
-        k = torch.argmax(gap, -1)[..., None]
-        flip = gap_ab.gather(-1, k) > gap_ba.gather(-1, k)  # a above b won
-        kk = k[..., None, :]
-        pa_k = pa.gather(-1, kk.expand(*pa.shape[:-1], 1))[..., 0]
-        pb_k = pb.gather(-1, kk.expand(*pb.shape[:-1], 1))[..., 0]
-        ia = torch.where(flip, pa_k.argmin(-1, keepdim=True),
-                         pa_k.argmax(-1, keepdim=True))
-        ib = torch.where(flip, pb_k.argmax(-1, keepdim=True),
-                         pb_k.argmin(-1, keepdim=True))
-    u = _gather_rows(axes, k)[..., 0, :]
+@torch.no_grad()
+def _sat_select(Va, Vb, axes, valid):
+    """The selection half of :func:`_sat_depth`: (k, flip, ia, ib), each
+    ``[..., 1]``: the winning axis (the first of the largest gaps), whether
+    a lies above b along it, and the extreme vertices of a and b whose gap
+    it is."""
+    ax = axes.detach()
+    pa = _dot3(Va.detach()[..., :, None, :], ax[..., None, :, :])
+    pb = _dot3(Vb.detach()[..., :, None, :], ax[..., None, :, :])
+    nrm_s = torch.sqrt(_sq3(ax) + 1e-24)
+    gap_ba = (pb.amin(-2) - pa.amax(-2)) / nrm_s           # [..., K]
+    gap_ab = (pa.amin(-2) - pb.amax(-2)) / nrm_s
+    gap = torch.maximum(gap_ba, gap_ab)
+    gap = torch.where(valid & (nrm_s > 1e-9), gap,
+                      torch.full_like(gap, -float("inf")))
+    k = torch.argmax(gap, -1)[..., None]
+    flip = gap_ab.gather(-1, k) > gap_ba.gather(-1, k)      # a above b won
+    kk = k[..., None, :]
+    pa_k = pa.gather(-1, kk.expand(*pa.shape[:-1], 1))[..., 0]
+    pb_k = pb.gather(-1, kk.expand(*pb.shape[:-1], 1))[..., 0]
+    ia = torch.where(flip, pa_k.argmin(-1, keepdim=True),
+                     pa_k.argmax(-1, keepdim=True))
+    ib = torch.where(flip, pb_k.argmax(-1, keepdim=True),
+                     pb_k.argmin(-1, keepdim=True))
+    return k, flip, ia, ib
+
+
+def _sat_gap(Va, Vb, u, flip, ia, ib):
+    """The winning gap recomputed from the axis ``u [..., 3]`` and the
+    vertices ``Va[ia]``, ``Vb[ib]`` alone (``flip``, ``ia``, ``ib``
+    ``[..., 1]`` from :func:`_sat_select`): the only differentiable part
+    of the SAT depth."""
     nrm = torch.sqrt(_dot3(u, u) + 1e-24)
     s = torch.where(flip[..., 0], -1.0, 1.0).to(u.dtype)
     diff = _gather_rows(Vb, ib)[..., 0, :] - _gather_rows(Va, ia)[..., 0, :]
     return s * _dot3(u, diff) / nrm
+
+
+def _sat_depth(Va, Vb, axes, valid):
+    """Best separating gap over candidate axes: max_k of max(min_b - max_a,
+    min_a - max_b) along axis k (positive: a certified separation; negative:
+    the penetration estimate).  ``valid`` masks padded axis rows.  The
+    winning axis and vertices are chosen under ``no_grad``
+    (:func:`_sat_select`); the gap is then recomputed from ``axes[k*]``,
+    ``Va[ia*]`` and ``Vb[ib*]`` alone (:func:`_sat_gap`)."""
+    k, flip, ia, ib = _sat_select(Va, Vb, axes, valid)
+    return _sat_gap(Va, Vb, _gather_rows(axes, k)[..., 0, :], flip, ia, ib)
 
 
 def edge_cross_axes(ea, ea_valid, eb, eb_valid):
@@ -301,28 +325,48 @@ def convex_convex(Va, ra, Vb, rb, axes, axes_valid, iters: int = GJK_ITERS):
     world-frame candidate separating axes (both hulls' face normals and
     edge-direction cross products, :func:`edge_cross_axes`) and
     ``axes_valid [..., K]`` masking padded rows; ``iters``: GJK support
-    steps."""
+    steps.
+
+    The discrete search (GJK's best simplex and the SAT winner) is
+    ``fused_convex.select``: the hand-written kernel on CUDA tensors, its
+    plain version on CPU tensors.  Everything that carries a gradient
+    (:func:`_epilogue`) is PyTorch."""
+    # fused_convex builds its plain version from this module's functions
+    from trajopt_tpu_torch.collision import fused_convex
+
     batch = torch.broadcast_shapes(Va.shape[:-2], Vb.shape[:-2],
                                    axes.shape[:-2])
     Va = Va.expand(*batch, *Va.shape[-2:])
     Vb = Vb.expand(*batch, *Vb.shape[-2:])
-    idA, idB, lam = _gjk_slots(Va, Vb, iters=iters)
-    z = _witness(Va, idA, lam) - _witness(Vb, idB, lam)
-    # safe norm: at penetration GJK converges to z = 0, where the norm's
-    # gradient is 0/0; the epsilon keeps it bounded (|g| <= 1)
-    d_gjk = torch.sqrt(_dot3(z, z) + 1e-24)
+    axes = axes.expand(*batch, *axes.shape[-2:])
+    axes_valid = axes_valid.expand(*batch, axes_valid.shape[-1])
     # Two extra candidate axes: the centroid difference (closes the
     # no-normal hole of spheres and capsules) and the GJK witness direction
     # (its gap IS the distance at a separated optimum, so SAT certifies
-    # separation where no face normal or edge cross does).
+    # separation where no face normal or edge cross does).  The centroid
+    # axis is computed here once, so the search and the gap see its bits.
     cax = Va.mean(-2) - Vb.mean(-2)
-    wax = z.detach()
-    axes = torch.cat([axes.expand(*batch, *axes.shape[-2:]),
-                      cax[..., None, :], wax[..., None, :]], -2)
-    valid = torch.cat([axes_valid.expand(*batch, axes_valid.shape[-1]),
-                       torch.ones((*batch, 2), dtype=torch.bool,
-                                  device=Va.device)], -1)
-    d_sat = _sat_depth(Va, Vb, axes, valid)
+    sel = fused_convex.select(Va, Vb, axes, axes_valid, cax.detach(),
+                              iters)
+    return _epilogue(Va, ra, Vb, rb, axes, cax, sel)
+
+
+def _all_axes(axes, cax, z):
+    """The SAT candidates ``[..., K + 2, 3]``: the caller's axes, the
+    centroid axis and the witness vector."""
+    return torch.cat([axes, cax[..., None, :], z[..., None, :]], -2)
+
+
+def _epilogue(Va, ra, Vb, rb, axes, cax, sel):
+    """The differentiable part of :func:`convex_convex` from the search's
+    result ``sel`` (``fused_convex.Selection``): the witness distance, the
+    winning SAT gap, the certificate and the radii."""
+    z = _witness(Va, sel.idA, sel.lam) - _witness(Vb, sel.idB, sel.lam)
+    # safe norm: at penetration GJK converges to z = 0, where the norm's
+    # gradient is 0/0; the epsilon keeps it bounded (|g| <= 1)
+    d_gjk = torch.sqrt(_dot3(z, z) + 1e-24)
+    u = _gather_rows(_all_axes(axes, cax, sel.z), sel.k)[..., 0, :]
+    d_sat = _sat_gap(Va, Vb, u, sel.flip, sel.ia, sel.ib)
     # The certificate threshold scales with the scene: at true penetration
     # the best GJK iterate sits on the origin up to round-off of the 4x4
     # simplex solve.

@@ -4,7 +4,8 @@ Jacobians.
 
 Counterpart of ``trajopt_tpu/collision/world.py``: spheres, capsules and
 boxes with closed-form kernels (``geometry.py``), convex hulls with the GJK
-+ SAT kernel (``convex.py``, which also serves every pair under
++ SAT narrowphase (``convex.py``, its search a CUDA kernel on the card:
+``fused_convex.py``; it also serves every pair under
 ``unify_narrowphase``), and SDF-grid worlds (``sdf_grid.py``).  The
 candidate pair list is static, built on the host in numpy; the
 narrowphase runs one batched call per (kind, kind) group over any leading
@@ -24,8 +25,10 @@ function transform.
 
 Convex groups split their work over lanes when one call would hold more
 than ``CONVEX_CHUNK_ELEMS`` SAT projection entries (queries x vertices x
-axes): every query's arithmetic is independent of the others', so the
-split call returns the unsplit call's bits.
+axes), the plain search's largest temporaries: every query's arithmetic is
+independent of the others', so the split call returns the unsplit call's
+bits.  The split is decided from shapes alone, on the card too (where the
+kernel holds no projections), so a captured region never changes it.
 """
 
 from __future__ import annotations

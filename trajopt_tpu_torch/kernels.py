@@ -4,9 +4,9 @@ Each kernel is one ``.cu`` file with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library at first use (one build per
 source and flag hash, into ``trajopt_tpu_torch/_build/``) and loaded with
 ``ctypes`` by its wrapper module (``qp/fused_block.py``,
-``qp/fused_dense.py``).  The host C++ QP (``csrc/qp_admm.cpp``,
-``qp/native.py``) is built the same way with ``g++``.  Nothing here runs
-at import time.
+``qp/fused_dense.py``, ``collision/fused_convex.py``).  The host C++ QP
+(``csrc/qp_admm.cpp``, ``qp/native.py``) is built the same way with
+``g++``.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
