@@ -9,6 +9,9 @@ JAX package, float64 on the CPU.
   (79 link pairs over 91 geometry pairs), under the discrete and LVS
   evaluators (the cast evaluator shares the LVS one's row selection), with
   and without a top-k over link pairs: the same;
+* the ``cast`` evaluator's dense Jacobian (the narrowphase's analytic
+  one, as the JAX term's), plain and with the link-pair aggregation: the
+  same;
 * ``given_init``, with and without the 1/dt column.
 """
 
@@ -54,6 +57,12 @@ CASES = {
         safety_margin_buffer=0.1, max_num_cnt=6)),
     "wavg_lvs": ("pr2ish", dict(
         evaluator="lvs_discrete", is_cost=False, lvs_substeps=2,
+        aggregate="weighted_average", safety_margin_buffer=0.05,
+        max_num_cnt=8)),
+    "cast_constraint": ("arm7", dict(evaluator="cast", is_cost=False,
+                                     lvs_substeps=2, fixed_steps=[0])),
+    "wavg_cast_topk_cost": ("pr2ish", dict(
+        evaluator="cast", is_cost=True, lvs_substeps=2,
         aggregate="weighted_average", safety_margin_buffer=0.05,
         max_num_cnt=8)),
 }

@@ -1,6 +1,7 @@
-"""Port on the card: the hand-written chunk kernels (block and dense) and
-the convex search kernel against their plain versions, the wrappers'
-checks and launch counts, a small solve of each QP path, the convex
+"""Port on the card: the hand-written chunk kernels (block and dense), the
+convex search kernel and the primitive narrowphase kernel against their
+plain versions, the wrappers' checks and launch counts, a small solve of
+each QP path (and a swept problem on the dense path), the convex
 narrowphase and an SDF grid's queries against the CPU, and captured
 regions against eager runs.
 
@@ -17,6 +18,7 @@ import torch
 
 from trajopt_tpu_torch.collision import convex as tcvx
 from trajopt_tpu_torch.collision import fused_convex as tfc
+from trajopt_tpu_torch.collision import fused_primitive as tfp
 from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
                                                  arm_table_problem,
                                                  pr2ish_table_batch,
@@ -289,6 +291,23 @@ def test_small_dense_solve_on_the_card(cuda):
     before = fd.COUNTER.launches
     res = solve(inits, {"goal": goals})
     assert fd.COUNTER.launches > before
+    assert (res.status == SQPStatus.CONVERGED).all()
+    assert torch.isfinite(res.x).all()
+
+
+def test_swept_solve_on_the_dense_path(cuda):
+    """A cast (swept) problem on the default dense path: its collision
+    term gives the narrowphase's analytic dense Jacobian, so the solve
+    runs through the primitive kernel and differentiates nothing through
+    it."""
+    prob, _ = pr2ish_table_problem(n_steps=6, lvs_substeps=2)
+    qp = ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
+                    check_every=150, adaptive_rho=False, rho_dual_scale=0.1)
+    solve = prob.make_solve(SQPParams(max_restarts=1, qp=qp))
+    inits, goals = pr2ish_table_batch(0, 4, 6)
+    dense, prim = fd.COUNTER.launches, tfp.COUNTER.launches
+    res = solve(inits, {"goal": goals})
+    assert fd.COUNTER.launches > dense and tfp.COUNTER.launches > prim
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()
 
@@ -914,3 +933,133 @@ def test_captures_follow_non_tensor_params(cuda, monkeypatch):
                                    rtol=0, atol=1e-9)
         np.testing.assert_allclose(cpu.x[:, -2:].numpy(), goal, atol=1e-4)
     assert aot_cache.STATS.replays > 0
+
+
+def _flagship_poses(dev, dtype, B=16):
+    """The flagship scene and its first convexification's poses on ``B``
+    lanes (straight-line inits, LVS 2): the swept endpoints' and the
+    sub-segment starts' (R, p, z, o), strided views of one FK call."""
+    _, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2, device=dev)
+    inits, _ = pr2ish_table_batch(0, B, 30, device=dev)
+    x = inits.to(dtype)
+    a, b = x[:, :-1], x[:, 1:]
+    fr = torch.linspace(0.0, 1.0, 3, dtype=dtype, device=dev)
+    q = a[:, :, None, :] + fr[:, None] * (b - a)[:, :, None, :]
+    fk = scene.tree.fk_with_axes(q)
+    return (scene, tuple(t[:, :, :-1] for t in fk),
+            tuple(t[:, :, 1:] for t in fk), tuple(t[:, :, 0] for t in fk))
+
+
+def _kernel_and_plain(scene, kind, fks, params=None):
+    like = fks[0][0]
+    plan = tfp.plan_of(scene, kind, like)
+    n_jac = (2 if kind == "swept" else 1) * (len(fks[0]) > 2)
+    got = scene._outputs(kind, like, n_jac)
+    tfp.query_cuda(plan, fks, params, got)
+    ref = tfp.query_plain(scene, plan, fks, params,
+                          scene._outputs(kind, like, n_jac))
+    return got, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["swept", "pairs"])
+def test_primitive_kernel_matches_plain(cuda, kind, dtype):
+    """Kernel against plain version on the flagship's gaps (16 lanes),
+    Jacobians and values: float64 within 1e-12 (d) and 1e-9 (J) on every
+    query; float32 beyond 1e-5 / 1e-4 on at most 0.1 % of the queries
+    (near ties of segment_box's scan), the values within 1e-5."""
+    scene, f0, f1, fd = _flagship_poses(cuda, dtype)
+    fks = (f0, f1) if kind == "swept" else (fd,)
+    f64 = dtype == torch.float64
+    d_tol, j_tol = (1e-12, 1e-9) if f64 else (1e-5, 1e-4)
+    tfp.COUNTER.reset()
+    for jac in (True, False):
+        got, ref = _kernel_and_plain(
+            scene, kind, tuple(f if jac else f[:2] for f in fks))
+        dd = (got[0] - ref[0]).abs()
+        bad = dd > d_tol
+        for g, r in zip(got[1:], ref[1:]):
+            bad |= (g - r).abs().amax(-1) > j_tol
+        assert float(dd.max()) <= d_tol
+        assert int(bad.sum()) <= (0 if f64 else 1e-3 * bad.numel())
+    assert tfp.COUNTER.launches == 2
+
+
+def test_primitive_kernel_reads_broadcasts_as_strides(cuda):
+    """One configuration broadcast over the lanes (stride 0) and a ball
+    center broadcast over gaps and sub-segments give the contiguous
+    copies' results bit for bit."""
+    scene, f0, f1, _ = _flagship_poses(cuda, torch.float32, B=1)
+    scene.add_world_sphere("ball", 0.1, center_param="ball")
+    f0, f1 = (tuple(t.expand(6, *t.shape[1:]) for t in f)
+              for f in (f0, f1))
+    ball = torch.tensor([[0.7, -0.3, 0.8]], device=cuda).expand(6, 3)
+    wide = _kernel_and_plain(scene, "swept", (f0, f1), {"ball": ball})[0]
+    dense = _kernel_and_plain(
+        scene, "swept", tuple(tuple(t.contiguous() for t in f)
+                              for f in (f0, f1)),
+        {"ball": ball.contiguous()})[0]
+    for a, b in zip(wide, dense):
+        assert torch.equal(a, b)
+
+
+def test_primitive_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    scene, f0, f1, _ = _flagship_poses(cuda, torch.float32, B=2)
+    plan = tfp.plan_of(scene, "swept", f0[0])
+    outs = scene._outputs("swept", f0[0], 2)
+    with pytest.raises(ValueError, match="cuda"):
+        tfp.query_cuda(plan, tuple(tuple(t.cpu() for t in f)
+                                   for f in (f0, f1)), None, outs)
+    with pytest.raises(TypeError):
+        tfp.query_cuda(plan, (tuple(t.half() for t in f0), f1), None, outs)
+    with pytest.raises(ValueError, match="endpoint"):
+        tfp.query_cuda(plan, (f0, f1[:2]), None, outs)
+    with pytest.raises(ValueError, match="outputs"):
+        tfp.query_cuda(plan, (f0, f1), None,
+                       (outs[0], outs[1].transpose(-1, -2), outs[2]))
+    with pytest.raises(ValueError, match="device or dtype"):
+        tfp.query_cuda(plan, tuple(tuple(t.double() for t in f)
+                                   for f in (f0, f1)), None,
+                       tuple(o.double() for o in outs))
+
+
+def test_primitive_query_refuses_transforms_and_grad(cuda):
+    """The kernel returns values and Jacobians, not an autograd graph: a
+    ``torch.func`` transform or an input that requires grad raises on the
+    card (the CPU's plain version differentiates)."""
+    scene, f0, f1, _ = _flagship_poses(cuda, torch.float32, B=2)
+    f0, f1 = (tuple(t.contiguous() for t in f[:2]) for f in (f0, f1))
+    with pytest.raises(ValueError, match="torch.func"):
+        torch.func.vmap(lambda R0, p0, R1, p1: scene.swept_distances(
+            (R0, p0), (R1, p1)))(*f0, *f1)
+    with pytest.raises(ValueError, match="differentiate"):
+        scene.swept_distances((f0[0], f0[1].requires_grad_(True)), f1)
+    with torch.no_grad():
+        assert torch.isfinite(scene.swept_distances(f0, f1)).all()
+
+
+def test_captured_primitive_narrowphase_equals_eager(cuda):
+    """A region holding the primitive kernel (the flagship scene's swept
+    Jacobians), captured with ``aot_cache.cached_export``, replays equal
+    to its eager run on new inputs; the wrapper is called while the
+    region is warmed up and captured, not when it is replayed."""
+    scene, f0, f1, _ = _flagship_poses(cuda, torch.float32, B=4)
+    f0, f1 = (tuple(t.contiguous() for t in f) for f in (f0, f1))
+
+    def region(*ts):
+        return scene.swept_distances_and_jac(ts[:4], ts[4:])
+
+    args = (*f0, *f1)
+    f = aot_cache.cached_export(region, args, "primitive-test", memo={})
+    aot_cache.STATS.reset()
+    tfp.COUNTER.reset()
+    f(*args)
+    captured_at = tfp.COUNTER.launches
+    assert captured_at >= 1 and aot_cache.STATS.captures == 1
+    for step in (0.01, -0.02):
+        moved = (*f0[:1], f0[1] + step, *f0[2:], *f1[:1], f1[1] + step,
+                 *f1[2:])
+        for a, b in zip(f(*moved), region(*moved)):
+            assert torch.equal(a, b)
+    assert aot_cache.STATS.replays >= 2
+    assert tfp.COUNTER.launches == captured_at + 2     # the eager runs

@@ -21,7 +21,13 @@ scalar kernel per pair under ``vmap``.  Here each group's kernel runs on
 the whole batch at once and ``torch.autograd.grad`` of the SUM of its
 outputs returns every pair's own gradient (each output depends only on its
 own pair's poses), which is the same subgradient without a per-pair
-function transform.
+function transform.  The primitive groups (spheres, capsules, boxes) go
+to ``fused_primitive.query``: on the card one hand-written kernel launch
+computes all of a query's primitive distances and Jacobians, in forward
+mode, straight into the outputs' pair order; on the CPU that module's
+plain version runs the autograd code.  Each query allocates its outputs in
+pair order and copies the other groups' results into their columns (in
+place on the card, out of place on the CPU; see ``fused_primitive.put``).
 
 Convex groups split their work over lanes when one call would hold more
 than ``CONVEX_CHUNK_ELEMS`` SAT projection entries (queries x vertices x
@@ -33,7 +39,6 @@ kernel holds no projections), so a captured region never changes it.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import itertools
 import os
@@ -42,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from trajopt_tpu_torch.collision import fused_primitive as fp
 from trajopt_tpu_torch.collision import geometry as geom
 from trajopt_tpu_torch.collision import sdf_grid as sg
 from trajopt_tpu_torch.collision.convex import (_rotate, convex_convex,
@@ -85,85 +91,6 @@ class CollGeom:
     verts: Optional[np.ndarray] = None
     normals: Optional[np.ndarray] = None
     edges: Optional[np.ndarray] = None
-
-
-def _pose_geom(Rl, pl, R_loc, p_loc, ea_loc, eb_loc):
-    """World pose + capsule endpoints of geoms given their parent link
-    poses (differentiable w.r.t. Rl/pl)."""
-    R = Rl @ R_loc
-    p = matvec(Rl, p_loc) + pl
-    return R, p, matvec(R, ea_loc) + p, matvec(R, eb_loc) + p
-
-
-def _side_pose(side):
-    """World pose of a group side given as (Rl, pl, local constants)."""
-    return _pose_geom(side[0], side[1], *side[2])
-
-
-def _scalar_kernel(key):
-    """Discrete narrowphase kernel for a group key; pose_* = (R, p, ea, eb)
-    world data, pr_* = padded params [..., 3]."""
-    def kern(pose_a, pra, pose_b, prb):
-        Ra, pa, eaa, eba = pose_a
-        Rb, pb, eab, ebb = pose_b
-        ra, rb = pra[..., 0], prb[..., 0]
-        if key == (SPHERE, SPHERE):
-            return geom.sphere_sphere(pa, ra, pb, rb)
-        if key == (SPHERE, CAPSULE):
-            return geom.sphere_capsule(pa, ra, eab, ebb, rb)
-        if key == (SPHERE, BOX):
-            return geom.sphere_box(pa, ra, Rb, pb, prb)
-        if key == (CAPSULE, CAPSULE):
-            return geom.capsule_capsule(eaa, eba, ra, eab, ebb, rb)
-        if key == (CAPSULE, BOX):
-            return geom.capsule_box(eaa, eba, ra, Rb, pb, prb)
-        if key == (BOX, BOX):
-            return geom.box_box_axis_aligned(Ra, pa, pra, Rb, pb, prb)
-        if key == (BOX, "obb"):
-            return geom.box_box(Ra, pa, pra, Rb, pb, prb)
-        raise ValueError(f"unsupported group {key}")
-    return kern
-
-
-def _swept_scalar_kernel(key):
-    """Swept kernel: geom `a` sweeps pose_a0 -> pose_a1 against static `b`.
-    Swept spheres are exact (capsules); capsules take the two swept edge
-    segments plus the endpoint poses; box-box is the Minkowski-sum segment
-    distance; boxes against spheres/capsules take the endpoint min."""
-    ka, kb = key
-
-    def kern(pose_a0, pose_a1, pra, pose_b, prb):
-        Ra0, pa0, eaa0, eba0 = pose_a0
-        Ra1, pa1, eaa1, eba1 = pose_a1
-        Rb, pb, eab, ebb = pose_b
-        ra, rb = pra[..., 0], prb[..., 0]
-        if ka == SPHERE:
-            if kb == SPHERE:
-                return geom.sphere_capsule(pb, rb, pa0, pa1, ra)
-            if kb == CAPSULE:
-                return geom.capsule_capsule(pa0, pa1, ra, eab, ebb, rb)
-            if kb == BOX:
-                return geom.capsule_box(pa0, pa1, ra, Rb, pb, prb)
-        if ka == CAPSULE:
-            segs = ((eaa0, eaa1), (eba0, eba1), (eaa0, eba0), (eaa1, eba1))
-            if kb == SPHERE:
-                ds = [geom.sphere_capsule(pb, rb, s, e, ra) for s, e in segs]
-            elif kb == CAPSULE:
-                ds = [geom.capsule_capsule(s, e, ra, eab, ebb, rb)
-                      for s, e in segs]
-            else:
-                ds = [geom.capsule_box(s, e, ra, Rb, pb, prb)
-                      for s, e in segs]
-            return torch.amin(torch.stack(ds, -1), -1)
-        if ka == BOX and kb == BOX:
-            ha_in_b = matvec(geom.abs_(Rb.transpose(-1, -2) @ Ra0), pra)
-            return geom.segment_box(pa0, pa1, Rb, pb, prb + ha_in_b)
-        if ka == BOX:  # kb in (SPHERE, CAPSULE): endpoint min, swapped
-            disc = _scalar_kernel((kb, ka))
-            return torch.minimum(disc(pose_b, prb, pose_a0, pra),
-                                 disc(pose_b, prb, pose_a1, pra))
-        raise ValueError(f"unsupported swept group {key}")
-    return kern
 
 
 def _canon_vertex_form(g: CollGeom):
@@ -309,33 +236,6 @@ def _swept_sdf_distance(ga: CollGeom, gb: CollGeom, pose0, pose1):
                                        ga.params[0])
     return torch.minimum(_sdf_distance(ga, gb, pose0),
                          _sdf_distance(ga, gb, pose1))
-
-
-def _lead(v: torch.Tensor, n_batch: int) -> torch.Tensor:
-    """``[*lead, 3]`` -> ``[*lead, 1, ..., 1, 3]`` with ``n_batch`` batch
-    axes, the given ones leading."""
-    return v.reshape(*v.shape[:-1], *(1,) * (n_batch - v.dim() + 1), 3)
-
-
-def _grads(out, leaves):
-    """Per-element gradients of ``out`` w.r.t. each leaf (zeros where a
-    leaf does not reach the output)."""
-    gs = torch.autograd.grad(out.sum(), leaves, allow_unused=True)
-    return [torch.zeros_like(l) if g is None else g
-            for g, l in zip(gs, leaves)]
-
-
-def _leaf(t):
-    return t.detach().requires_grad_(True)
-
-
-def _span(key):
-    """The profiler range around a convex group's work (value, backward
-    and composition), read by ``chip_smoke.Trace``; no range for the
-    primitive groups."""
-    if key == _CONVEX_KEY:
-        return torch.profiler.record_function("collision.convex")
-    return contextlib.nullcontext()
 
 
 def _cat_runs(outs):
@@ -692,14 +592,14 @@ class CollisionScene:
             p_loc = p_loc.expand(*batch, *p_loc.shape).clone()
             for gi, k in enumerate(keys):
                 if k is not None:
-                    p_loc[..., gi, :] = _lead(torch.as_tensor(
+                    p_loc[..., gi, :] = fp.lead(torch.as_tensor(
                         params[k], dtype=R.dtype, device=R.device),
                         len(batch))
         return Rl, pl, (t["R"], p_loc, t["ea"], t["eb"])
 
     def _posed(self, t, R, p, params=None):
         """World pose + capsule endpoints for a group side."""
-        return _side_pose(self._side(t, R, p, params))
+        return fp.side_pose(self._side(t, R, p, params))
 
     @staticmethod
     def _convex_world(t, Rl, pl):
@@ -709,30 +609,24 @@ class CollisionScene:
         return (_rotate(Rv, t["verts"]) + pl[..., None, :],
                 _rotate(Rv, t["normals"]), _rotate(Rv, t["edges"]))
 
-    def _discrete(self, key, ta, tb, sa, sb):
-        """Discrete distances of a group from each side's (Rl, pl, locals)."""
-        if key == _CONVEX_KEY:
-            va, na, ea = self._convex_world(ta, sa[0], sa[1])
-            vb, nb, eb = self._convex_world(tb, sb[0], sb[1])
-            cx, cxv = edge_cross_axes(ea, ta["evalid"], eb, tb["evalid"])
-            return convex_convex(
-                va, ta["radius"], vb, tb["radius"],
-                torch.cat([na, nb, cx], -2),
-                torch.cat([ta["nvalid"], tb["nvalid"], cxv], -1))
-        return _scalar_kernel(key)(_side_pose(sa), ta["params"],
-                                   _side_pose(sb), tb["params"])
+    def _convex_discrete(self, ta, tb, sa, sb):
+        """Discrete distances of the convex group from each side's (Rl,
+        pl)."""
+        va, na, ea = self._convex_world(ta, sa[0], sa[1])
+        vb, nb, eb = self._convex_world(tb, sb[0], sb[1])
+        cx, cxv = edge_cross_axes(ea, ta["evalid"], eb, tb["evalid"])
+        return convex_convex(
+            va, ta["radius"], vb, tb["radius"],
+            torch.cat([na, nb, cx], -2),
+            torch.cat([ta["nvalid"], tb["nvalid"], cxv], -1))
 
-    def _swept_static(self, key, ta, tb, sa0, sa1, sb):
-        """Swept distances of a moving-vs-static group: side a sweeps from
-        sa0 to sa1 against side b (both (Rl, pl, locals)).  A convex group
-        runs GJK over the union of a's endpoint vertex sets with the
+    def _convex_swept(self, ta, tb, sa0, sa1, sb):
+        """Swept distances of the convex moving-vs-static group: side a
+        sweeps from sa0 to sa1 against side b (both (Rl, pl, locals)),
+        through GJK over the union of a's endpoint vertex sets with the
         swept-prism axes: a's endpoint faces, b's faces, the side faces
         cross(edge, displacement) and the crosses of the union edge set
         (edges at both poses + the displacement) with b's edges."""
-        if key != _CONVEX_KEY:
-            return _swept_scalar_kernel(key)(
-                _side_pose(sa0), _side_pose(sa1), ta["params"],
-                _side_pose(sb), tb["params"])
         va0, na0, ea0 = self._convex_world(ta, sa0[0], sa0[1])
         va1, na1, ea1 = self._convex_world(ta, sa1[0], sa1[1])
         vb, nb, eb = self._convex_world(tb, sb[0], sb[1])
@@ -763,49 +657,49 @@ class CollisionScene:
         L = R.shape[0]
         return [slice(s, min(s + n, L)) for s in range(0, L, n)]
 
-    def _compose_pose_grads(self, gR, gp, Rl, pl, t, z, zxo, is_rev):
-        """[..., Pg, n_dof] joint-space gradient of one side's link pose
-        gradients: revolute dd/dq_j = z_j.(p_l x gp + sum_c R_c x gR_c)
-        - (z_j x o_j).gp; prismatic z_j.gp; static rows masked to zero."""
-        m = geom.cross(pl, gp) + geom.cross(
-            Rl.transpose(-1, -2), gR.transpose(-1, -2)).sum(-2)
-        zt = z[..., None, :, :]                       # [..., 1, n_dof, 3]
-        term_rev = (m[..., None, :] * zt).sum(-1) \
-            - (gp[..., None, :] * zxo[..., None, :, :]).sum(-1)
-        term_pri = (gp[..., None, :] * zt).sum(-1)
-        return t["mask"] * torch.where(is_rev, term_rev, term_pri)
+    def _index(self, kind: str, idx, device) -> torch.Tensor:
+        """Pair indices ``idx`` of a group of the ``kind`` query
+        (``"pairs"``: :meth:`_pair_groups`, ``"swept"``:
+        :meth:`_swept_groups`) as a tensor on ``device``."""
+        idx = np.atleast_1d(idx)
+        return on_device(self, (kind, tuple(idx.tolist())), lambda: idx,
+                         device)
 
-    def _order(self, kind: str, device) -> torch.Tensor:
-        """The inverse permutation from group order back to pair order
-        (``pairs``: :meth:`_pair_groups`, ``swept``: :meth:`_swept_groups`)
-        on ``device``."""
+    def _outputs(self, kind: str, like, jac: int):
+        """Uninitialised outputs of a ``kind`` query in pair order: d
+        [..., P] and ``jac`` Jacobians [..., P, n_dof]."""
         groups = self._pair_groups if kind == "pairs" else self._swept_groups
-        return on_device(self, kind, lambda: groups()[-1], device)
-
-    def _assemble(self, parts, inv_perm):
-        return torch.cat(parts, -1)[..., inv_perm]
+        batch, P = like.shape[:-3], len(groups()[-1])
+        d = like.new_empty(*batch, P)
+        return (d, *(like.new_empty(*batch, P, self.tree.n_dof)
+                     for _ in range(jac)))
 
     def distances(self, fk, params=None) -> torch.Tensor:
         """[..., n_pairs] signed distances at link poses ``fk = (R, p)``
         from ``tree.fk`` (the JAX function takes one configuration q)."""
         R, p = fk[0], fk[1]
         groups, sdf, _ = self._pair_groups()
-        parts = []
-        for key, _, a, b in groups:
+        outs = self._outputs("pairs", R, 0)
+        outs = fp.query(self, "pairs", ((R, p),), params, outs)
+        for key, idx, a, b in groups:
+            if key != _CONVEX_KEY:
+                continue
             ta, tb = self._tensors(a, R), self._tensors(b, R)
 
-            def run(sl, key=key, ta=ta, tb=tb):
+            def run(sl, ta=ta, tb=tb):
                 Rs, ps = R[sl], p[sl]
-                return (self._discrete(key, ta, tb,
-                                       self._side(ta, Rs, ps, params),
-                                       self._side(tb, Rs, ps, params)),)
-            with _span(key):
-                parts.append(_cat_runs([run(sl) for sl in
-                                        self._lane_slices(key, ta, tb, R)])[0])
-        for _, ga, gb, a in sdf:
-            parts.append(_sdf_distance(ga, gb, self._posed(
-                self._tensors(a, R), R, p, params)))
-        return self._assemble(parts, self._order("pairs", R.device))
+                return (self._convex_discrete(
+                    ta, tb, self._side(ta, Rs, ps, params),
+                    self._side(tb, Rs, ps, params)),)
+            with torch.profiler.record_function("collision.convex"):
+                outs = fp.put(outs, self._index("pairs", idx, R.device),
+                          _cat_runs([run(sl) for sl in
+                                     self._lane_slices(key, ta, tb, R)]))
+        for idx, ga, gb, a in sdf:
+            outs = fp.put(outs, self._index("pairs", idx, R.device), (
+                _sdf_distance(ga, gb, self._posed(self._tensors(a, R), R, p,
+                                                  params)),))
+        return outs[0]
 
     def distances_and_jac(self, fk, params=None):
         """(ds [..., P], J [..., P, n_dof]) at link poses and joint axes
@@ -813,44 +707,44 @@ class CollisionScene:
         gradient w.r.t. its two link poses, composed through the
         geometric-Jacobian relations."""
         R, p, z, o = fk
+        groups, sdf, _ = self._pair_groups()
+        outs = self._outputs("pairs", R, 1)
+        outs = fp.query(self, "pairs", ((R, p, z, o),), params, outs)
         zxo = geom.cross(z, o)
         is_rev = self.tree.revolute(R.device)
-        groups, sdf, _ = self._pair_groups()
-        ds, Js = [], []
         with torch.enable_grad():
-            for key, _, a, b in groups:
+            for key, idx, a, b in groups:
+                if key != _CONVEX_KEY:
+                    continue
                 ta, tb = self._tensors(a, R), self._tensors(b, R)
 
-                def run(sl, key=key, ta=ta, tb=tb):
+                def run(sl, ta=ta, tb=tb):
                     Rs, ps = R[sl], p[sl]
                     sa = self._side(ta, Rs, ps, params)
                     sb = self._side(tb, Rs, ps, params)
-                    leaves = [_leaf(v) for v in (*sa[:2], *sb[:2])]
-                    d = self._discrete(key, ta, tb, (*leaves[:2], sa[2]),
-                                       (*leaves[2:], sb[2]))
-                    g = _grads(d, leaves)
-                    zs, zxos = z[sl], zxo[sl]
+                    leaves = [fp.leaf(v) for v in (*sa[:2], *sb[:2])]
+                    d = self._convex_discrete(ta, tb, leaves[:2], leaves[2:])
+                    g = fp.grads(d, leaves)
+                    ax = (z[sl], zxo[sl], is_rev)
                     return d.detach(), (
-                        self._compose_pose_grads(g[0], g[1], *sa[:2], ta,
-                                                 zs, zxos, is_rev)
-                        + self._compose_pose_grads(g[2], g[3], *sb[:2], tb,
-                                                   zs, zxos, is_rev))
-                with _span(key):
-                    d, J = _cat_runs([run(sl) for sl in self._lane_slices(
-                        key, ta, tb, R)])
-                ds.append(d)
-                Js.append(J)
-            for _, ga, gb, a in sdf:
+                        fp.compose_pose_grads(g[0], g[1], *sa[:2],
+                                              ta["mask"], *ax)
+                        + fp.compose_pose_grads(g[2], g[3], *sb[:2],
+                                                tb["mask"], *ax))
+                with torch.profiler.record_function("collision.convex"):
+                    outs = fp.put(outs, self._index("pairs", idx, R.device),
+                              _cat_runs([run(sl) for sl in
+                                         self._lane_slices(key, ta, tb, R)]))
+            for idx, ga, gb, a in sdf:
                 ta = self._tensors(a, R)
                 Rl, pl, locs = self._side(ta, R, p, params)
-                leaves = [_leaf(Rl), _leaf(pl)]
-                d = _sdf_distance(ga, gb, _pose_geom(*leaves, *locs))
-                g = _grads(d, leaves)
-                ds.append(d.detach())
-                Js.append(self._compose_pose_grads(g[0], g[1], Rl, pl, ta,
-                                                   z, zxo, is_rev))
-        ip = self._order("pairs", R.device)
-        return self._assemble(ds, ip), torch.cat(Js, -2)[..., ip, :]
+                leaves = [fp.leaf(Rl), fp.leaf(pl)]
+                d = _sdf_distance(ga, gb, fp.pose_geom(*leaves, *locs))
+                g = fp.grads(d, leaves)
+                outs = fp.put(outs, self._index("pairs", idx, R.device), (
+                    d.detach(), fp.compose_pose_grads(
+                        g[0], g[1], Rl, pl, ta["mask"], z, zxo, is_rev)))
+        return outs
 
     def swept_distances(self, fk0, fk1, params=None) -> torch.Tensor:
         """[..., n_pairs] signed distances of geometry swept between two
@@ -861,36 +755,45 @@ class CollisionScene:
         R0, p0 = fk0[0], fk0[1]
         R1, p1 = fk1[0], fk1[1]
         moving, static, sdf, _ = self._swept_groups()
-        parts = []
-        for key, _, a, b in moving:
+        outs = self._outputs("swept", R0, 0)
+        outs = fp.query(self, "swept", ((R0, p0), (R1, p1)), params, outs)
+        for key, idx, a, b in moving:
+            if key != _CONVEX_KEY:
+                continue
             ta, tb = self._tensors(a, R0), self._tensors(b, R0)
 
-            def run(sl, key=key, ta=ta, tb=tb):
-                d = [self._discrete(key, ta, tb,
-                                    self._side(ta, Rs[sl], ps[sl], params),
-                                    self._side(tb, Rs[sl], ps[sl], params))
+            def run(sl, ta=ta, tb=tb):
+                d = [self._convex_discrete(
+                    ta, tb, self._side(ta, Rs[sl], ps[sl], params),
+                    self._side(tb, Rs[sl], ps[sl], params))
                      for Rs, ps in ((R0, p0), (R1, p1))]
                 return (torch.minimum(*d),)
-            with _span(key):
-                parts.append(_cat_runs([run(sl) for sl in self._lane_slices(
-                    key, ta, tb, R0)])[0])
-        for key, _, a, b in static:
+            with torch.profiler.record_function("collision.convex"):
+                outs = fp.put(outs, self._index("swept", idx, R0.device),
+                          _cat_runs([run(sl) for sl in
+                                     self._lane_slices(key, ta, tb, R0)]))
+        for key, idx, a, b in static:
+            if key != _CONVEX_KEY:
+                continue
             ta, tb = self._tensors(a, R0), self._tensors(b, R0)
 
-            def run(sl, key=key, ta=ta, tb=tb):
-                return (self._swept_static(
-                    key, ta, tb, self._side(ta, R0[sl], p0[sl], params),
+            def run(sl, ta=ta, tb=tb):
+                return (self._convex_swept(
+                    ta, tb, self._side(ta, R0[sl], p0[sl], params),
                     self._side(ta, R1[sl], p1[sl], params),
                     self._side(tb, R0[sl], p0[sl], params)),)
-            with _span(key):
-                parts.append(_cat_runs([run(sl) for sl in self._lane_slices(
-                    key, ta, tb, R0, swept=True)])[0])
-        for _, ga, gb, a in sdf:
+            with torch.profiler.record_function("collision.convex"):
+                outs = fp.put(outs, self._index("swept", idx, R0.device),
+                          _cat_runs([run(sl) for sl in self._lane_slices(
+                              key, ta, tb, R0, swept=True)]))
+        for idx, ga, gb, a in sdf:
             ta = self._tensors(a, R0)
-            parts.append(_swept_sdf_distance(
-                ga, gb, self._posed(ta, R0, p0, params),
-                self._posed(ta, R1, p1, params)))
-        return self._assemble(parts, self._order("swept", R0.device))
+            outs = fp.put(outs, self._index("swept", idx, R0.device), (
+                _swept_sdf_distance(ga, gb,
+                                    self._posed(ta, R0, p0, params),
+                                    self._posed(ta, R1, p1, params)
+                                    ),))
+        return outs[0]
 
     def swept_distances_and_jac(self, fk0, fk1, params=None):
         """(ds [..., P], J0 [..., P, n_dof], J1 [..., P, n_dof]) of the
@@ -900,83 +803,81 @@ class CollisionScene:
         endpoint."""
         R0, p0, z0, o0 = fk0
         R1, p1, z1, o1 = fk1
+        moving, static, sdf, _ = self._swept_groups()
+        outs = self._outputs("swept", R0, 2)
+        outs = fp.query(self, "swept", (fk0, fk1), params, outs)
         zxo0 = geom.cross(z0, o0)
         zxo1 = geom.cross(z1, o1)
         is_rev = self.tree.revolute(R0.device)
-        moving, static, sdf, _ = self._swept_groups()
 
         def c0(gR, gp, Rl, pl, t, sl=slice(None)):
-            return self._compose_pose_grads(gR, gp, Rl, pl, t, z0[sl],
-                                            zxo0[sl], is_rev)
+            return fp.compose_pose_grads(gR, gp, Rl, pl, t["mask"], z0[sl],
+                                         zxo0[sl], is_rev)
 
         def c1(gR, gp, Rl, pl, t, sl=slice(None)):
-            return self._compose_pose_grads(gR, gp, Rl, pl, t, z1[sl],
-                                            zxo1[sl], is_rev)
+            return fp.compose_pose_grads(gR, gp, Rl, pl, t["mask"], z1[sl],
+                                         zxo1[sl], is_rev)
 
-        ds, J0s, J1s = [], [], []
         with torch.enable_grad():
-            for key, _, a, b in moving:
+            for key, idx, a, b in moving:
+                if key != _CONVEX_KEY:
+                    continue
                 ta, tb = self._tensors(a, R0), self._tensors(b, R0)
 
-                def run(sl, key=key, ta=ta, tb=tb):
+                def run(sl, ta=ta, tb=tb):
                     sa0 = self._side(ta, R0[sl], p0[sl], params)
                     sb0 = self._side(tb, R0[sl], p0[sl], params)
                     sa1 = self._side(ta, R1[sl], p1[sl], params)
                     sb1 = self._side(tb, R1[sl], p1[sl], params)
-                    leaves = [_leaf(v) for v in (*sa0[:2], *sb0[:2],
-                                                 *sa1[:2], *sb1[:2])]
+                    leaves = [fp.leaf(v) for v in (*sa0[:2], *sb0[:2],
+                                                   *sa1[:2], *sb1[:2])]
                     d = torch.minimum(
-                        self._discrete(key, ta, tb, (*leaves[0:2], sa0[2]),
-                                       (*leaves[2:4], sb0[2])),
-                        self._discrete(key, ta, tb, (*leaves[4:6], sa1[2]),
-                                       (*leaves[6:8], sb1[2])))
-                    g = _grads(d, leaves)
+                        self._convex_discrete(ta, tb, leaves[0:2],
+                                              leaves[2:4]),
+                        self._convex_discrete(ta, tb, leaves[4:6],
+                                              leaves[6:8]))
+                    g = fp.grads(d, leaves)
                     return (d.detach(),
                             c0(g[0], g[1], *sa0[:2], ta, sl)
                             + c0(g[2], g[3], *sb0[:2], tb, sl),
                             c1(g[4], g[5], *sa1[:2], ta, sl)
                             + c1(g[6], g[7], *sb1[:2], tb, sl))
-                with _span(key):
-                    d, J0, J1 = _cat_runs([run(sl) for sl in
-                                           self._lane_slices(key, ta, tb, R0)])
-                ds.append(d)
-                J0s.append(J0)
-                J1s.append(J1)
-            for key, _, a, b in static:
+                with torch.profiler.record_function("collision.convex"):
+                    outs = fp.put(outs, self._index("swept", idx, R0.device),
+                              _cat_runs([run(sl) for sl in
+                                         self._lane_slices(key, ta, tb, R0)]))
+            for key, idx, a, b in static:
+                if key != _CONVEX_KEY:
+                    continue
                 ta, tb = self._tensors(a, R0), self._tensors(b, R0)
 
-                def run(sl, key=key, ta=ta, tb=tb):
+                def run(sl, ta=ta, tb=tb):
                     sa0 = self._side(ta, R0[sl], p0[sl], params)
                     sa1 = self._side(ta, R1[sl], p1[sl], params)
-                    leaves = [_leaf(v) for v in (*sa0[:2], *sa1[:2])]
-                    d = self._swept_static(
-                        key, ta, tb, (*leaves[:2], sa0[2]),
-                        (*leaves[2:], sa1[2]),
+                    leaves = [fp.leaf(v) for v in (*sa0[:2], *sa1[:2])]
+                    d = self._convex_swept(
+                        ta, tb, leaves[:2], leaves[2:],
                         self._side(tb, R0[sl], p0[sl], params))
-                    g = _grads(d, leaves)
+                    g = fp.grads(d, leaves)
                     return (d.detach(), c0(g[0], g[1], *sa0[:2], ta, sl),
                             c1(g[2], g[3], *sa1[:2], ta, sl))
-                with _span(key):
-                    d, J0, J1 = _cat_runs([run(sl) for sl in self._lane_slices(
-                        key, ta, tb, R0, swept=True)])
-                ds.append(d)
-                J0s.append(J0)
-                J1s.append(J1)
-            for _, ga, gb, a in sdf:
+                with torch.profiler.record_function("collision.convex"):
+                    outs = fp.put(outs, self._index("swept", idx, R0.device),
+                              _cat_runs([run(sl) for sl in self._lane_slices(
+                                  key, ta, tb, R0, swept=True)]))
+            for idx, ga, gb, a in sdf:
                 ta = self._tensors(a, R0)
                 Rl0, pl0, locs = self._side(ta, R0, p0, params)
                 Rl1, pl1, _ = self._side(ta, R1, p1, params)
-                leaves = [_leaf(v) for v in (Rl0, pl0, Rl1, pl1)]
+                leaves = [fp.leaf(v) for v in (Rl0, pl0, Rl1, pl1)]
                 d = _swept_sdf_distance(ga, gb,
-                                        _pose_geom(*leaves[:2], *locs),
-                                        _pose_geom(*leaves[2:], *locs))
-                g = _grads(d, leaves)
-                ds.append(d.detach())
-                J0s.append(c0(g[0], g[1], Rl0, pl0, ta))
-                J1s.append(c1(g[2], g[3], Rl1, pl1, ta))
-        ip = self._order("swept", R0.device)
-        return (self._assemble(ds, ip), torch.cat(J0s, -2)[..., ip, :],
-                torch.cat(J1s, -2)[..., ip, :])
+                                        fp.pose_geom(*leaves[:2], *locs),
+                                        fp.pose_geom(*leaves[2:], *locs))
+                g = fp.grads(d, leaves)
+                outs = fp.put(outs, self._index("swept", idx, R0.device), (
+                    d.detach(), c0(g[0], g[1], Rl0, pl0, ta),
+                    c1(g[2], g[3], Rl1, pl1, ta)))
+        return outs
 
 
 def resolve_resource(filename: str, package_map: dict | None) -> str:

@@ -4,9 +4,15 @@ Each kernel is one ``.cu`` file with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library at first use (one build per
 source and flag hash, into ``trajopt_tpu_torch/_build/``) and loaded with
 ``ctypes`` by its wrapper module (``qp/fused_block.py``,
-``qp/fused_dense.py``, ``collision/fused_convex.py``).  The host C++ QP
-(``csrc/qp_admm.cpp``, ``qp/native.py``) is built the same way with
-``g++``.  Nothing here runs at import time.
+``qp/fused_dense.py``, ``collision/fused_convex.py``,
+``collision/fused_primitive.py``: the fourth kernel, the primitive
+narrowphase of ``csrc/primitive_narrowphase.cu``, whose per-query
+functions live in ``csrc/primitive_narrowphase.cuh``).  The host C++ QP
+(``csrc/qp_admm.cpp``, ``qp/native.py``) and the host build of the
+primitive narrowphase's functions for the CPU tests
+(``csrc/primitive_host.cpp``) are built the same way with ``g++``.  A
+build is keyed by its source and the local headers it includes.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -46,6 +52,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _with_headers(source: Path) -> bytes:
+    """The source's bytes followed by those of the local headers it
+    includes (``#include "name"``, recursively), so that a header's edit
+    changes the build's hash."""
+    out, seen, todo = [], set(), [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        out.append(data)
+        for line in data.decode(errors="replace").splitlines():
+            line = line.strip()
+            if line.startswith("#include") and '"' in line:
+                todo.append(path.parent / line.split('"')[1])
+    return b"".join(out)
+
+
 def build_library(source: Path, verbose: bool = False,
                   compiler: str | None = None,
                   flags: list[str] | None = None) -> Path:
@@ -56,7 +81,7 @@ def build_library(source: Path, verbose: bool = False,
     (registers, shared memory, spills)."""
     flags = NVCC_FLAGS if flags is None else flags
     name = "nvcc" if compiler is None else compiler
-    src = source.read_bytes()
+    src = _with_headers(source)
     tag = hashlib.sha256(src + " ".join([name, *flags]).encode()
                          ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{tag}.so"

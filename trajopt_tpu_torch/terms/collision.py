@@ -22,9 +22,11 @@ buffered errors ``max(0, coeff * (margin + safety_margin_buffer - d))``;
 ``max_num_cnt`` then caps link-pair rows.
 
 Each gives the residual rows, the dense Jacobian (``jac_fn`` /
-``val_jac_fn``, for the dense QP path; the cast evaluator leaves it to
-autograd) and the banded one (``banded_jac`` / ``val_banded_jac``, for the
-block QP path), with per-pair coefficient/margin overrides.  The LVS
+``val_jac_fn``, for the dense QP path) and the banded one (``banded_jac`` /
+``val_banded_jac``, for the block QP path), both from the narrowphase's
+analytic Jacobians, with per-pair coefficient/margin overrides: no solver
+path differentiates through the narrowphase (on the card its kernel
+returns values and Jacobians, not an autograd graph).  The LVS
 evaluator queries every lane, gap and sub-point in one narrowphase call.
 Every narrowphase call gets the solve's ``params`` (the centers of world
 geometry registered with ``center_param``), as the JAX term's do.
@@ -352,8 +354,7 @@ def _gap_term(name, kind, scene, n_steps, n_dof_total, coeff_mat, margin_mat,
     is_cost = kind is Kind.COST_HINGE
     return TermSet(
         name, kind, raw, m_rows,
-        jac_fn=None if swept else (lambda x, p: val_jac(x, p)[1]),
-        val_jac_fn=None if swept else val_jac,
+        jac_fn=lambda x, p: val_jac(x, p)[1], val_jac_fn=val_jac,
         banded_jac=lambda x, p: val_banded_jac(x, p)[1],
         band_starts=band_starts, band_width=2 * n_dof_total,
         val_banded_jac=val_banded_jac,
