@@ -7,7 +7,7 @@ Phases, each of which must pass:
 2. build the hand-written kernels ``csrc/admm_block_chunk.cu``,
    ``csrc/admm_dense_chunk.cu``, ``csrc/convex_narrowphase.cu`` and
    ``csrc/primitive_narrowphase.cu`` with nvcc, all at once (``-Xptxas
-   -v``: registers and spills);
+   -v``: registers and spills, one line an instantiation);
 3. hold the block kernel against its plain PyTorch version at the
    flagship QP shapes (T 30, D 8, K 2, R 40, B 256, 150 iterations), on
    seeded data with hard, penalty and inert padded rows and one lane with
@@ -27,14 +27,16 @@ Phases, each of which must pass:
    call of the unified flagship's first convexification (B = 256,
    float32; the largest call, the swept moving-vs-static group of 697,856
    queries, in float64 too): the queries whose selection differs and the
-   distance each gives; time both on the largest call and compute the
-   bound;
+   distance each gives, and each call's GJK steps to the fixed point
+   (``fused_convex.gjk_steps``); time both on the largest call and compute
+   the bound from the steps its queries run;
 4c. hold the primitive narrowphase kernel against its plain version on
    every primitive call of the flagship's first convexification and first
    exact evaluation (B = 256: the swept Jacobian call and the swept value
    call, 1,351,168 queries each; float32, the largest call in float64
-   too): the queries whose d or J differ beyond tolerance and the largest
-   differences; time both on the largest call and compute the bound;
+   too; one kernel launch a group): the queries whose d or J differ
+   beyond tolerance and the largest differences; time both on the
+   largest call and compute the bound;
 5. small problems (10 steps, 3 lanes) on the card (float32, kernels,
    the primitive narrowphase included) against the CPU (plain versions):
    for pr2ish one QP step (convexify, prepare, 450 ADMM iterations)
@@ -47,7 +49,9 @@ Phases, each of which must pass:
    structured=True)``, then the independent swept check of every lane;
    the block kernel's launch count over that solve; a profiled repeat for
    the device's idle share, the chunk kernel's in-path time and the
-   primitive kernel's traced launches; the final trajectories re-verified
+   primitive kernel's traced launches and query calls (one launch a
+   group, a call's launches back to back); the final trajectories
+   re-verified
    with the plain primitive narrowphase (the same verified count); the
    same batch solved with the plain primitive narrowphase (eager) against
    the kernel route: in float32 statuses equal on >= 99 % of the lanes
@@ -94,14 +98,16 @@ Phases, each of which must pass:
    primitive kernels' on the result (waypoints: within 5e-4 where the
    primitive value is > -0.02; the LVS sub-segments reported), and the
    profiled repeat's device time inside the convex narrowphase
-   (``collision.convex``) with its top kernels and the search kernel's
-   traced launches; (b) the unified scene's
+   (``collision.convex``; ``scripts/compare_trees.py`` prints it beside
+   a parent tree's) with its top kernels, no sort kernel among them, and
+   the search kernel's traced launches; (b)
+   the unified scene's
    ``distances_and_jac`` and ``swept_distances_and_jac`` on the card in
    float64 against the CPU (and float32 beside the CPU's own float32
    error), and with the search kernel against the plain search (d within
    1e-10, Jacobians within 1e-8); (c) small float32 solves on the dense
-   path (the mesh arm's hull pairs through the search kernel), card
-   against CPU
+   path (the mesh arm's hull pairs through the search kernel, with the
+   GJK steps its queries run to their fixed points), card against CPU
    with equal statuses: arm6 on its shelf, the mesh arm (hulls of binary
    STL links written to a temporary directory, through
    ``scene_from_urdf`` with an SRDF), arm7 against an SDF grid of its
@@ -851,6 +857,16 @@ def hold_selection(label: str, inputs) -> float:
     return max(errs)
 
 
+def print_gjk_steps(label: str, steps: torch.Tensor) -> None:
+    """The distribution of ``steps`` (``fused_convex.gjk_steps``): how many
+    queries the search kernel stops after each step count."""
+    counts = torch.bincount(steps.flatten(), minlength=cvx.GJK_ITERS + 1)
+    hist = {s: n for s, n in enumerate(counts.tolist()) if n}
+    print(f"{label}: GJK steps to the fixed point (at most "
+          f"{cvx.GJK_ITERS}): queries by steps {hist}, mean "
+          f"{float(steps.double().mean()):.3f}")
+
+
 def phase_convex_kernel_check(dev) -> dict:
     """The convex search kernel on the unified flagship's first
     convexification at B = 256: every call's inputs held against the plain
@@ -861,20 +877,23 @@ def phase_convex_kernel_check(dev) -> dict:
     errs = []
     for i, inp in enumerate(calls):
         Va, Vb, axes = inp[:3]
-        errs.append(hold_selection(
-            f"convex search call {i} (queries {tuple(Va.shape[:-2])}, A "
-            f"{Va.shape[-2]}, B {Vb.shape[-2]}, K {axes.shape[-2]} + 2)",
-            inp))
+        label = (f"convex search call {i} (queries {tuple(Va.shape[:-2])}, "
+                 f"A {Va.shape[-2]}, B {Vb.shape[-2]}, K {axes.shape[-2]} "
+                 f"+ 2)")
+        errs.append(hold_selection(label, inp))
+        print_gjk_steps(label, fc.gjk_steps(Va, Vb))
     main = max(calls, key=lambda c: c[0][..., 0, 0].numel() * c[2].shape[-2])
-    hold_selection("convex search, largest call, float64",
-                   tuple(t.double() if t.is_floating_point() else t
-                         for t in main))
+    f64 = tuple(t.double() if t.is_floating_point() else t for t in main)
+    hold_selection("convex search, largest call, float64", f64)
+    print_gjk_steps("convex search, largest call, float64",
+                    fc.gjk_steps(*f64[:2]))
     Va, Vb, axes = main[:3]
     N = Va[..., 0, 0].numel()
     A, Bv, K = Va.shape[-2], Vb.shape[-2], axes.shape[-2]
     ms = cuda_ms(lambda: fc.select_cuda(*main), 20)
     plain_ms = cuda_ms(lambda: fc.select_plain(*main), 2)
-    flops = N * fc.select_flops(A, Bv, K)
+    # the GJK steps this call's queries run to their fixed points
+    flops = fc.search_flops(A, Bv, K, fc.gjk_steps(Va, Vb))
     nbytes = fc.select_bytes(*main)
     bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
     print(f"convex search kernel on the largest call, {N} queries (A {A}, "
@@ -1007,7 +1026,8 @@ def phase_primitive_kernel_check(dev) -> dict:
     bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
     n = got[0].numel()
     print(f"primitive kernel on the largest call ({kind} Jacobians, {n} "
-          f"queries in {len(plan.kernel_groups)} groups): kernel {ms:.4f} "
+          f"queries in {len(plan.kernel_groups)} groups, one launch each): "
+          f"kernel {ms:.4f} "
           f"ms, plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
           f"{bound_by} ({flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms, "
           f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); roofline share "
@@ -1475,6 +1495,17 @@ class Trace:
         spans = [e - s for name, s, e, _ in self.spans if kernel in name]
         return len(spans), sum(spans) / 1e6
 
+    def kernel_runs(self, kernel: str) -> int:
+        """Runs of consecutive device spans (in start order) whose name
+        holds ``kernel``: the calls of a wrapper that launches its kernel
+        once a group, back to back on one stream."""
+        runs, prev = 0, False
+        for name, _, _, _ in sorted(self.spans, key=lambda sp: sp[1]):
+            hit = kernel in name
+            runs += hit and not prev
+            prev = hit
+        return runs
+
     def top(self, k: int = 10, among=None) -> str:
         """The ``k`` device spans with the most time, summed by name (of
         the spans indexed by ``among``, default all)."""
@@ -1671,9 +1702,11 @@ def profile_solve(label: str, run, kernel: str, launches: int) -> dict:
               f"({ms_k / max(n_k, 1):.4f} ms each)")
         for name in (fc.KERNEL, fp.KERNEL):
             n_c, ms_c = traced[name] = trace.kernel_time(name)
+            calls = (f" in {trace.kernel_runs(name)} query calls (runs of "
+                     f"back-to-back launches)" if name == fp.KERNEL else "")
             if n_c:
                 print(f"{label}: {name}: {n_c} launches traced in the "
-                      f"solve, {ms_c:.3f} ms device time "
+                      f"solve{calls}, {ms_c:.3f} ms device time "
                       f"({ms_c / n_c:.4f} ms each)")
         print(f"{label}: top device time by kernel: {trace.top()}")
         total = sum(e - s for _, s, e, _ in trace.spans)
@@ -1686,12 +1719,17 @@ def profile_solve(label: str, run, kernel: str, launches: int) -> dict:
             dev = sum(trace.spans[k][2] - trace.spans[k][1] for k in ks)
             print(f"{label}: {what} narrowphase ({rng}): "
                   f"{dev / 1e6:.1f} ms of {total / 1e6:.1f} ms device time "
-                  f"({100 * dev / max(total, 1):.2f} %), {len(ks)} device "
-                  f"spans in {len(trace.ranges[rng])} "
+                  f"({100 * dev / max(total, 1):.2f} %), {len(ks)} "
+                  f"device spans in {len(trace.ranges[rng])} "
                   f"calls; its top: {trace.top(among=ks)}")
             if what == "convex" and traced[name][0] == 0:
                 raise SystemExit(f"{label}: the profiled solve ran the "
                                  f"convex narrowphase without its kernel")
+            sorts = {trace.spans[k][0] for k in ks
+                     if "sort" in trace.spans[k][0].lower()}
+            if what == "convex" and sorts:
+                raise SystemExit(f"{label}: sort kernels in {rng}: "
+                                 f"{sorted(sorts)}")
     print(f"{label}: reading the profile took {time.time() - t0:.1f} s")
     return traced
 
@@ -1724,14 +1762,14 @@ def plain_primitive():
         fp.query = saved
 
 
-def phase_flagship(smi: str) -> tuple[int, int]:
+def phase_flagship(smi: str) -> tuple[int, int, int]:
     """The flagship (see the module doc, phase 6).  The primitive kernel
     runs inside the captured regions (init, convexify, evaluate), where
     its wrapper is called while a region is warmed up and captured, not
     when it is replayed: its launches are counted over the path's first
     solve (which makes the captures) and traced by name in the profiled
     repeats.  Returns (block kernel launches of the measured solve,
-    primitive kernel launches of the first solve)."""
+    primitive kernel launches and query calls of the first solve)."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
     solve = prob.make_solve(flagship_params(), structured=True)
     inits, goals = pr2ish_table_batch(1, B, 30)
@@ -1741,9 +1779,10 @@ def phase_flagship(smi: str) -> tuple[int, int]:
     t0 = time.time()
     solve(inits, {"goal": goals})
     torch.cuda.synchronize()
-    prim = fp.COUNTER.launches
+    prim, calls = fp.COUNTER.kernels, fp.COUNTER.launches
     print(f"flagship: first solve {time.time() - t0:.2f} s "
-          f"({aot_cache.STATS}); {fp.KERNEL} launched {prim} times")
+          f"({aot_cache.STATS}); {fp.KERNEL} launched {prim} times by "
+          f"{calls} query calls")
     if prim <= 0:
         raise SystemExit("flagship: the primitive narrowphase kernel never "
                          "launched")
@@ -1849,17 +1888,17 @@ def phase_flagship(smi: str) -> tuple[int, int]:
     if traced and traced[fp.KERNEL][0] <= 0:
         raise SystemExit("flagship: no primitive kernel launch traced in "
                          "the eager solve")
-    return block, prim
+    return block, prim, calls
 
 
-def phase_arm7(smi: str) -> tuple[int, int]:
+def phase_arm7(smi: str) -> tuple[int, int, int]:
     """The arm7 discrete workload on the dense path (the default entry
     point, ``make_solve`` with ``structured=False``), with the primitive
     kernel's launches by its discrete entries over the path's first solve
     (which makes the captures; required), then on the block path
     (``bench.py``'s ``discrete_arm7`` line), counts and rate only.  Returns
     (dense kernel launches of the measured solve, primitive kernel
-    launches of the first solve)."""
+    launches and query calls of the first solve)."""
     prob, scene = arm_table_problem(n_steps=ARM_STEPS)
     solve = prob.make_solve(discrete_params())
     inits, goals = arm_table_batch(1, ARM_B, ARM_STEPS)
@@ -1869,10 +1908,10 @@ def phase_arm7(smi: str) -> tuple[int, int]:
     t0 = time.time()
     solve(inits, {"goal": goals})
     torch.cuda.synchronize()
-    prim = fp.COUNTER.launches
+    prim, calls = fp.COUNTER.kernels, fp.COUNTER.launches
     print(f"arm7 dense: first solve {time.time() - t0:.2f} s "
-          f"({aot_cache.STATS}); {fp.KERNEL} launched {prim} times by the "
-          f"discrete entries")
+          f"({aot_cache.STATS}); {fp.KERNEL} launched {prim} times by "
+          f"{calls} query calls of the discrete entries")
     if prim <= 0:
         raise SystemExit("arm7 dense: the discrete entries never launched "
                          "the primitive kernel")
@@ -1889,7 +1928,7 @@ def phase_arm7(smi: str) -> tuple[int, int]:
                                              structured=True),
                scene, arm_table_batch, ARM_B, ARM_STEPS, 7, fb.COUNTER,
                "admm_block_chunk_kernel", smi, None, profile=False)
-    return launches, prim
+    return launches, prim, calls
 
 
 def hard_batch(seed: int, B: int, n_steps: int):
@@ -2353,6 +2392,30 @@ def collision_scene_solve(path: str, dev, mesh_dir: str):
                               res.x)]
 
 
+@contextlib.contextmanager
+def gjk_census(steps: dict):
+    """Within the block, every convex search call on the card made outside
+    a CUDA graph capture (eager, or a region's warm-up) adds its queries'
+    GJK steps to the fixed point (``fused_convex.gjk_steps``: plain
+    PyTorch, no launch) to ``steps[(A, B)]``."""
+    saved = fc.select
+
+    def census(Va, Vb, axes, valid, cax, iters=cvx.GJK_ITERS):
+        out = saved(Va, Vb, axes, valid, cax, iters)
+        if Va.is_cuda and not torch.cuda.is_current_stream_capturing():
+            key = (Va.shape[-2], Vb.shape[-2])
+            got = fc.gjk_steps(Va, Vb, iters).flatten()
+            steps[key] = torch.cat([steps[key], got]) if key in steps \
+                else got
+        return out
+
+    fc.select = census
+    try:
+        yield steps
+    finally:
+        fc.select = saved
+
+
 def phase_collision_scenes() -> tuple[int, int]:
     """(c) Small solves of the other collision scenes, card (float32,
     kernels) against the CPU (float32, plain versions): equal statuses.
@@ -2366,8 +2429,12 @@ def phase_collision_scenes() -> tuple[int, int]:
             fd.COUNTER.reset()
             fc.COUNTER.reset()
             t0 = time.time()
-            gpu = collision_scene_solve(path, cuda, tmp)
+            with gjk_census({}) as steps:
+                gpu = collision_scene_solve(path, cuda, tmp)
             t_card = time.time() - t0
+            for (A, Bv), st in sorted(steps.items()):
+                print_gjk_steps(f"collision scene solve ({path}), search "
+                                f"calls of A {A}, B {Bv}", st)
             launches += fd.COUNTER.launches
             convex += fc.COUNTER.launches
             ref = collision_scene_solve(path, cpu, tmp)
@@ -2811,10 +2878,12 @@ def main() -> int:
     convex = timed("convex kernel", phase_convex_kernel_check, dev)
     prim = timed("primitive kernel", phase_primitive_kernel_check, dev)
     timed("small references", phase_small_reference)
-    block["launches"], prim["launches"] = timed("flagship", phase_flagship,
-                                                smi)
-    dense_k["launches"], prim["arm7_dense_launches"] = timed(
-        "arm7", phase_arm7, smi)
+    # the primitive kernel launches once a group: its "launches" count
+    # kernel launches, its "query_calls" the wrapper's calls
+    block["launches"], prim["launches"], prim["query_calls"] = timed(
+        "flagship", phase_flagship, smi)
+    (dense_k["launches"], prim["arm7_dense_launches"],
+     prim["arm7_dense_query_calls"]) = timed("arm7", phase_arm7, smi)
     block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi)
     block["family_launches"] = timed("family", phase_family, smi)
     dense_k.update(timed("json front end", phase_json, smi))

@@ -11,7 +11,8 @@ and axes) to 1e-9; the GJK weights, the 4x4 subset solves and
 query functions to 1e-9 with equal groups; a call split over lanes equal
 to the unsplit call bit for bit.  The search of ``collision/fused_convex.py``
 (the kernel's plain version) on the same battery: its GJK weights and its
-SAT gap equal the JAX functions', and the wrapper's dispatch.
+SAT gap equal the JAX functions', and the wrapper's dispatch; the
+witness's sorting network against ``torch.sort``.
 """
 
 import jax
@@ -257,6 +258,48 @@ def test_batch_layout_reads_broadcasts_as_strides():
     with pytest.raises(ValueError, match="at most"):
         tfc._batch_layout(flipped.shape[:-2], [flipped])
     assert tfc.select_flops(4, 8, 17) > 25_000
+
+
+def test_sort4_matches_torch_sort():
+    """The witness's sorting network gives ``torch.sort``'s values on
+    random int64 rows, rows with duplicates and edge-mode padded index 0
+    (every slot at vertex 0 and mixes of it)."""
+    rng = np.random.default_rng(5)
+    rows = [rng.integers(0, 40, (200, 4)), rng.integers(0, 3, (200, 4)),
+            np.zeros((1, 4), np.int64), np.array([[0, 7, 0, 3], [5, 0, 0, 0],
+                                                  [2, 2, 1, 1]]),
+            np.array(list(np.ndindex(4, 4, 4, 4)))]
+    for r in rows:
+        idx = torch.as_tensor(r, dtype=torch.long)
+        got = tcvx._sort4(idx)
+        assert got.dtype == torch.long
+        assert torch.equal(got, torch.sort(idx, dim=-1, stable=True).values)
+    batched = torch.as_tensor(rng.integers(0, 9, (3, 5, 4)))
+    assert torch.equal(tcvx._sort4(batched),
+                       torch.sort(batched, dim=-1).values)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gjk_stops_at_its_fixed_point(dtype):
+    """A query stopped after its ``gjk_steps`` (the step that returns its
+    slots and weights bit for bit, where the search kernel stops it) has
+    the best simplex of all 16 steps, on random pairs of 4 x 8 and of
+    30 x 40 vertices (a third of them padded edge-mode)."""
+    rng = np.random.default_rng(11)
+    for A, B in ((4, 8), (30, 40)):
+        Va = rng.normal(size=(300, A, 3))
+        Va[:100, -1] = Va[:100, 0]
+        Vb = rng.normal(size=(300, B, 3)) + rng.normal(size=(300, 1, 3))
+        Va, Vb = (torch.as_tensor(v, dtype=dtype) for v in (Va, Vb))
+        steps = tfc.gjk_steps(Va, Vb)
+        assert steps.shape == (300,) and steps.dtype == torch.long
+        assert int(steps.min()) >= 1 and int(steps.max()) <= tcvx.GJK_ITERS
+        assert int((steps < tcvx.GJK_ITERS).sum()) > 0
+        full = tcvx._gjk_slots(Va, Vb)
+        for s in steps.unique().tolist():
+            m = steps == s
+            for a, b in zip(tcvx._gjk_slots(Va[m], Vb[m], s), full):
+                assert torch.equal(a, b[m])
 
 
 def test_simplex_subproblem_matches_jax():

@@ -5,6 +5,10 @@ each QP path (and a swept problem on the dense path), the convex
 narrowphase and an SDF grid's queries against the CPU, and captured
 regions against eager runs.
 
+The narrowphase kernels are also held on ragged query counts, shapes
+outside the convex kernel's compile-time set, and a primitive call of
+one group or an empty batch.
+
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed (``--noconftest`` skips the JAX set-up of tests/conftest.py):
@@ -660,6 +664,64 @@ def test_convex_search_kernel_matches_plain(cuda, dtype):
         assert torch.equal(a, b)
 
 
+def _random_search_inputs(dev, dtype, n, A, B, K, seed=0):
+    """Seeded search inputs of ``n`` queries: random vertex sets (the last
+    vertex of a third of A's rows repeating the first, as edge-mode
+    padding does), random axes with a mask, the centroid axis."""
+    rng = np.random.default_rng(seed)
+    Va = rng.normal(size=(n, A, 3))
+    Va[: n // 3, -1] = Va[: n // 3, 0]
+    Vb = rng.normal(size=(n, B, 3)) + 2.0 * rng.normal(size=(n, 1, 3))
+    axes = rng.normal(size=(n, K, 3))
+    valid = rng.uniform(size=(n, K)) < 0.8
+    Va, Vb, axes = (torch.as_tensor(a, dtype=dtype, device=dev)
+                    for a in (Va, Vb, axes))
+    return (Va, Vb, axes, torch.as_tensor(valid, device=dev),
+            Va.mean(-2) - Vb.mean(-2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_convex_search_kernel_ragged_and_run_time_shapes(cuda, dtype):
+    """The search kernel (one thread a query, several queries a thread)
+    against its plain version on query counts that are multiples of
+    neither 16 nor a block's share, at the compile-time shapes (A, B) =
+    (4, 8), (2, 2), (8, 8) and at shapes outside them (hulls of 12 and 20
+    vertices; 1 and 3), and a ragged call equal to the same queries inside
+    a full one."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    for n, A, B, K in ((45, 4, 8, 17), (13, 2, 2, 3), (21, 8, 8, 24),
+                       (19, 12, 20, 30), (5, 1, 3, 0)):
+        inputs = _random_search_inputs(cuda, dtype, n, A, B, K)
+        got = _hold_search(inputs, tol)
+        full = tfc.select_cuda(*_random_search_inputs(cuda, dtype, 48, A, B,
+                                                      K))
+        part = tfc.select_cuda(*(t[:n] for t in _random_search_inputs(
+            cuda, dtype, 48, A, B, K)))
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:n])
+        assert got.idA.shape == (n, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_convex_search_kernel_large_hulls(cuda, dtype):
+    """The run-time instantiation reads the vertex rows through their
+    strides, so it takes hulls of any size: 200 x 200 vertices and 400 x
+    300 (more than a block's shared memory could stage a thread) against
+    the plain version; a broadcast Vb (stride 0) gives the contiguous
+    inputs' bits."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    for n, A, B, K in ((300, 200, 200, 30), (37, 400, 300, 8)):
+        Va, Vb, axes, valid, cax = _random_search_inputs(cuda, dtype, n, A,
+                                                         B, K)
+        assert _hold_search((Va, Vb, axes, valid, cax), tol).idA.shape \
+            == (n, 4)
+        wide = (Va, Vb[:1].expand(n, B, 3), axes, valid,
+                Va.mean(-2) - Vb[:1].mean(-2))
+        dense = tuple(t.contiguous() for t in wide)
+        for a, b in zip(tfc.select_cuda(*wide), tfc.select_cuda(*dense)):
+            assert torch.equal(a, b)
+
+
 def test_convex_search_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     Va, Vb, axes, valid = (torch.as_tensor(a, device=cuda) for a in
                            _convex_battery())
@@ -1001,6 +1063,55 @@ def test_primitive_kernel_reads_broadcasts_as_strides(cuda):
         {"ball": ball.contiguous()})[0]
     for a, b in zip(wide, dense):
         assert torch.equal(a, b)
+
+
+def _capsule_box_scene(dev):
+    """One link capsule against one world box: every query of the swept
+    entry is one group, a capsule swept against static geometry."""
+    from trajopt_tpu_torch.collision import world as tw
+    from trajopt_tpu_torch.models.robots import pr2ish
+    scene = tw.CollisionScene(pr2ish())
+    scene.add_link_capsule("r_forearm_link", 0.05, [0.0, 0.0, 0.0],
+                           [0.3, 0.0, 0.0], name="arm")
+    scene.add_world_box("table", [0.4, 0.5, 0.03], [0.7, -0.2, 0.6])
+    return scene
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_primitive_kernel_one_group_ragged_and_empty(cuda, dtype):
+    """A query of one kernel group (a capsule swept against a static box,
+    four lanes a query) on 7 queries, against the plain version as
+    ``test_primitive_kernel_matches_plain`` holds it, one launch a call;
+    an empty batch launches nothing."""
+    scene = _capsule_box_scene(cuda)
+    tree = scene.tree
+    rng = np.random.default_rng(4)
+    q0 = rng.uniform(tree.lower, tree.upper, (7, 8))
+    q1 = np.clip(q0 + 0.5 * rng.standard_normal((7, 8)), tree.lower,
+                 tree.upper)
+    q0, q1 = (torch.as_tensor(q, dtype=dtype, device=cuda) for q in (q0, q1))
+    fks = (tree.fk_with_axes(q0), tree.fk_with_axes(q1))
+    plan = tfp.plan_of(scene, "swept", fks[0][0])
+    assert [(m, k) for m, k, _, _ in plan.kernel_groups] == \
+        [("static", ("capsule", "box"))]
+    f64 = dtype == torch.float64
+    d_tol, j_tol = (1e-12, 1e-9) if f64 else (1e-5, 1e-4)
+    tfp.COUNTER.reset()
+    for jac in (True, False):
+        got, ref = _kernel_and_plain(
+            scene, "swept", tuple(f if jac else f[:2] for f in fks))
+        dd = (got[0] - ref[0]).abs()
+        bad = dd > d_tol
+        for g, r in zip(got[1:], ref[1:]):
+            bad |= (g - r).abs().amax(-1) > j_tol
+        assert float(dd.max()) <= d_tol
+        assert int(bad.sum()) <= (0 if f64 else 1e-3 * bad.numel())
+    assert tfp.COUNTER.launches == tfp.COUNTER.kernels == 2
+    empty = tuple(tuple(t[:0] for t in f) for f in fks)
+    outs = scene._outputs("swept", empty[0][0], 2)
+    tfp.query_cuda(plan, empty, None, outs)
+    assert outs[0].shape == (0, scene.n_pairs)
+    assert tfp.COUNTER.launches == tfp.COUNTER.kernels == 2
 
 
 def test_primitive_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -17,6 +17,7 @@ import torch
 from test_torch_collision import _gaps
 from trajopt_tpu.models.robots import pr2ish_scene as jax_pr2ish_scene
 from trajopt_tpu_torch.collision import fused_primitive as fp
+from trajopt_tpu_torch.collision import geometry as geom
 from trajopt_tpu_torch.collision import world as tw
 from trajopt_tpu_torch.models.robots import pr2ish, pr2ish_scene
 
@@ -167,6 +168,48 @@ def test_host_build_matches_plain_for_every_key(synthetic, mode, key):
            f"{mode} {key} value-only d")
 
 
+def test_host_build_splits_tied_segments_as_plain():
+    """A capsule swept against static geometry with q0 == q1: its two
+    endpoint capsules (segments 2 and 3) tie exactly, and the sweeps of its
+    ends (0 and 1) are points of them, so the per-segment evaluation must
+    add the tied segments' tangents in amin's order and divide by their
+    count: float64 d and J0, J1 within 1e-12 of the plain version."""
+    scene = synthetic_scene()
+    q0, _, params = _synthetic_inputs(n=4, seed=8)
+    f0 = scene.tree.fk_with_axes(q0)
+    got, plan = _host(scene, "swept", (f0, f0), params)
+    plain = scene.swept_distances_and_jac(f0, f0, params)
+    groups = [g for g in plan.groups
+              if g.mode == "static" and g.key[0] == "capsule"]
+    assert {g.key[1] for g in groups} == {"sphere", "capsule", "box"}
+    ties = 0
+    for g in groups:        # queries whose least segment value is tied
+        _, _, ea, eb = fp.side_pose(scene._side(g.ta, f0[0], f0[1], params))
+        Rb, pb, eab, ebb = fp.side_pose(scene._side(g.tb, f0[0], f0[1],
+                                                    params))
+        ra, rb = g.ta["params"][..., 0], g.tb["params"][..., 0]
+        segs = ((ea, ea), (eb, eb), (ea, eb), (ea, eb))
+        if g.key[1] == "sphere":
+            ds = [geom.sphere_capsule(pb, rb, a, b, ra) for a, b in segs]
+        elif g.key[1] == "capsule":
+            ds = [geom.capsule_capsule(a, b, ra, eab, ebb, rb)
+                  for a, b in segs]
+        else:
+            ds = [geom.capsule_box(a, b, ra, Rb, pb, g.tb["params"])
+                  for a, b in segs]
+        ds = torch.stack(ds, -1)
+        ties += int(((ds == ds.amin(-1, keepdim=True)).sum(-1) > 1).sum())
+    assert ties >= 4 * len(groups) // 2
+    cols = torch.as_tensor(np.concatenate([g.idx for g in groups]))
+    for name, g, p_ in zip(("d", "J0", "J1"), got, plain):
+        dim = -1 if name == "d" else -2
+        np.testing.assert_allclose(
+            g.index_select(dim, cols).numpy(),
+            p_.index_select(dim, cols).numpy(), rtol=0, atol=1e-12,
+            err_msg=f"tied segments {name}")
+    assert float(got[1].index_select(-2, cols).abs().max()) > 0.0
+
+
 def test_host_build_reads_strided_batches_and_lane_params():
     """LVS-style sub-segment views [B, G, n_sub] of one FK call (not
     contiguous), a per-lane ball center broadcast over gaps and
@@ -241,6 +284,11 @@ def test_bound_counts():
             fp.primitive_flops(mode, key, False, 8) > 0
     assert fp.primitive_flops("static", ("capsule", "box"), True, 8) > \
         fp.primitive_flops("static", ("sphere", "box"), True, 8)
+    # a capsule swept against a static box, Jacobians, 8 joints: 3 poses,
+    # four segments at 6 slots each (597 plain + 239 x (1 + 2 x 6)), two
+    # endpoints' twists of 2 points and 8 columns
+    assert fp.primitive_flops("static", ("capsule", "box"), True, 8) == \
+        3 * 99 + 4 * (597 + 239 * 13) + 2 * (21 * 2 + 22 * 8) == 15549
     scene = pr2ish_scene()
     q = torch.zeros(5, 8, dtype=torch.float64)
     fk = scene.tree.fk_with_axes(q)

@@ -187,6 +187,33 @@ def _slot_weights(idx: torch.Tensor, lam: torch.Tensor, n: int):
 
 
 @torch.no_grad()
+def _gjk_start(A: torch.Tensor, B: torch.Tensor):
+    """GJK's first state (idA, idB, lam): every slot at the first vertex
+    pair, all weight on slot 0."""
+    idA = torch.zeros((*A.shape[:-2], 4), dtype=torch.long, device=A.device)
+    lam = torch.zeros((*A.shape[:-2], 4), dtype=A.dtype, device=A.device)
+    lam[..., 0] = 1.0
+    return idA, torch.zeros_like(idA), lam
+
+
+def _gjk_step(A, B, idA, idB, lam, slots):
+    """One support step of :func:`_gjk_slots` from the slots ``idA``,
+    ``idB`` and weights ``lam``: the new slots and weights, and the squared
+    norm of their iterate.  ``slots`` is ``arange(4)``."""
+    z = _wsum(lam, _gather_rows(A, idA) - _gather_rows(B, idB))
+    sa = torch.argmin(_dot3(A, z[..., None, :]), -1)
+    sb = torch.argmax(_dot3(B, z[..., None, :]), -1)
+    # replace the least-contributing slot with the new support point
+    slot = torch.argmin(_merge_duplicates(idA, idB, lam), -1)
+    put = slots == slot[..., None]
+    idA = torch.where(put, sa[..., None], idA)
+    idB = torch.where(put, sb[..., None], idB)
+    W = _gather_rows(A, idA) - _gather_rows(B, idB)
+    lam = _closest_on_simplex(W)
+    z2 = _wsum(lam, W)
+    return idA, idB, lam, _dot3(z2, z2)
+
+
 def _gjk_slots(A: torch.Tensor, B: torch.Tensor, iters: int = GJK_ITERS):
     """GJK's best simplex: (idA [..., 4], idB [..., 4], lam [..., 4]), the
     Minkowski vertices' indices in ``A [..., nA, 3]`` and ``B [..., nB, 3]``
@@ -195,35 +222,15 @@ def _gjk_slots(A: torch.Tensor, B: torch.Tensor, iters: int = GJK_ITERS):
     difference, support steps and the subset-enumeration distance
     subproblem."""
     A, B = A.detach(), B.detach()
-    batch = A.shape[:-2]
-    dev = A.device
-    idA = torch.zeros((*batch, 4), dtype=torch.long, device=dev)
-    idB = torch.zeros_like(idA)
-    lam = torch.zeros((*batch, 4), dtype=A.dtype, device=dev)
-    lam[..., 0] = 1.0
-    slots = torch.arange(4, device=dev)
-
-    def simplex(ia, ib):
-        return _gather_rows(A, ia) - _gather_rows(B, ib)
-
-    z0 = _wsum(lam, simplex(idA, idB))
+    idA, idB, lam = _gjk_start(A, B)
+    slots = torch.arange(4, device=A.device)
+    z0 = _wsum(lam, _gather_rows(A, idA) - _gather_rows(B, idB))
     bd2, bidA, bidB, blam = _dot3(z0, z0), idA, idB, lam
     for _ in range(iters):
-        z = _wsum(lam, simplex(idA, idB))
-        sa = torch.argmin(_dot3(A, z[..., None, :]), -1)
-        sb = torch.argmax(_dot3(B, z[..., None, :]), -1)
-        # replace the least-contributing slot with the new support point
-        slot = torch.argmin(_merge_duplicates(idA, idB, lam), -1)
-        put = slots == slot[..., None]
-        idA = torch.where(put, sa[..., None], idA)
-        idB = torch.where(put, sb[..., None], idB)
-        W = simplex(idA, idB)
-        lam = _closest_on_simplex(W)
+        idA, idB, lam, d2 = _gjk_step(A, B, idA, idB, lam, slots)
         # Track the BEST iterate, not the last: once the simplex encloses
         # the origin the support direction degenerates and the next slot
         # replacement can break the enclosing simplex.
-        z2 = _wsum(lam, W)
-        d2 = _dot3(z2, z2)
         take = d2 < bd2
         bd2 = torch.where(take, d2, bd2)
         bidA = torch.where(take[..., None], idA, bidA)
@@ -240,13 +247,27 @@ def _gjk_weights(A: torch.Tensor, B: torch.Tensor, iters: int = GJK_ITERS):
             _slot_weights(idB, lam, B.shape[-2]))
 
 
+def _sort4(idx: torch.Tensor) -> torch.Tensor:
+    """``torch.sort(idx, -1).values`` of ``idx [..., 4]`` by a sorting
+    network of five compare-exchanges (elementwise minimum and maximum),
+    which the card runs as a few elementwise kernels instead of a radix
+    sort."""
+    a, b, c, d = idx.unbind(-1)
+    a, b = torch.minimum(a, b), torch.maximum(a, b)
+    c, d = torch.minimum(c, d), torch.maximum(c, d)
+    a, c = torch.minimum(a, c), torch.maximum(a, c)
+    b, d = torch.minimum(b, d), torch.maximum(b, d)
+    b, c = torch.minimum(b, c), torch.maximum(b, c)
+    return torch.stack([a, b, c, d], -1)
+
+
 def _witness(V: torch.Tensor, idx: torch.Tensor, lam: torch.Tensor):
     """``w @ V`` with ``w = zeros(n).at[idx].add(lam)``, differentiable in
     ``V``: the fused multiply-add chain over the weighted vertices in
     ascending index order (a zero weight adds nothing exactly), as XLA
     computes the dense product."""
     with torch.no_grad():
-        order = torch.sort(idx, dim=-1, stable=True).values
+        order = _sort4(idx)
         w = _slot_weights(idx, lam, V.shape[-2]).gather(-1, order)
         repeat = torch.cat([torch.zeros_like(order[..., :1], dtype=torch.bool),
                             order[..., 1:] == order[..., :-1]], -1)

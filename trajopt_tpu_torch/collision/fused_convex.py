@@ -14,11 +14,14 @@ Counterpart of the search inside ``trajopt_tpu/collision/convex.py``
 ``convex_convex``, which has no Pallas source: XLA fuses it on the TPU.
 
 Dispatch: on CPU tensors :func:`select` runs :func:`select_plain`; on CUDA
-tensors it launches the kernel (one thread a query) or raises -- there is
-no fallback.  The kernel is built with ``nvcc`` for ``sm_90a`` at first use
-into ``trajopt_tpu_torch/_build/``, with ``--fmad=false`` so that only the
-fused multiply-adds the plain version makes (``torch.addcmul``) are fused,
-and bound with ``ctypes``.  Broadcast inputs (stride 0) are read through
+tensors it launches the kernel (one thread a query, several queries a
+thread; a query's GJK stops at its fixed point, where a step returns the
+simplex and weights bit for bit; compile-time instantiations for the
+vertex counts the paths run, a run-time one for any other count) or
+raises -- there is no fallback.  The kernel is built with ``nvcc`` for
+``sm_90a`` at first use into ``trajopt_tpu_torch/_build/``, with
+``--fmad=false`` so that only the fused multiply-adds the plain version
+makes (``torch.addcmul``) are fused, and bound with ``ctypes``.  Broadcast inputs (stride 0) are read through
 their strides, not copied.
 """
 
@@ -121,6 +124,35 @@ def select_flops(A: int, B: int, K: int, iters: int = cvx.GJK_ITERS) -> int:
     per_step = 21 + 5 * (A + B) + 6 + 3 + 50 + 15 * per_subset + 26
     return (26 + iters * per_step + 45 + (K + 2) * (11 + 5 * (A + B))
             + 5 * (A + B))
+
+
+@torch.no_grad()
+def gjk_steps(Va, Vb, iters: int = cvx.GJK_ITERS) -> torch.Tensor:
+    """The GJK steps the kernel runs for each query ``[...]`` (long): up
+    to and including the first step that returns the slots and weights
+    bit for bit as they went in (the query's fixed point, where the kernel
+    stops it), at most ``iters``.  Plain PyTorch on any device, launching
+    nothing: the data-dependent count behind :func:`search_flops`."""
+    A, B = Va.detach(), Vb.detach()
+    idA, idB, lam = cvx._gjk_start(A, B)
+    slots = torch.arange(4, device=A.device)
+    bits = torch.int32 if lam.dtype == torch.float32 else torch.int64
+    steps = torch.full(A.shape[:-2], iters, dtype=torch.long, device=A.device)
+    for i in range(iters):
+        nA, nB, nl, _ = cvx._gjk_step(A, B, idA, idB, lam, slots)
+        same = ((nA == idA) & (nB == idB)
+                & (nl.view(bits) == lam.view(bits))).all(-1)
+        steps = torch.where(same & (steps == iters), i + 1, steps)
+        idA, idB, lam = nA, nB, nl
+    return steps
+
+
+def search_flops(A: int, B: int, K: int, steps: torch.Tensor) -> int:
+    """:func:`select_flops` summed over queries that run ``steps`` GJK
+    steps each (:func:`gjk_steps`): the operations a call's data needs."""
+    per_step = select_flops(A, B, K, 1) - select_flops(A, B, K, 0)
+    return steps.numel() * select_flops(A, B, K, 0) \
+        + int(steps.sum()) * per_step
 
 
 def select_bytes(Va, Vb, axes, valid, cax) -> int:

@@ -24,12 +24,14 @@ query) is the autograd code: each group's kernel on the whole batch, and
 link-pose gradient, composed through the geometric-Jacobian relations
 (:func:`compose_pose_grads`).
 
-The kernel route (:func:`query_cuda`) launches one thread a query (lane,
-gap, sub-segment, pair) for every group whose key is in :data:`KEYS`, one
-launch for all of a query's groups.  The kernel differentiates in forward
-mode: the world points of one side carry tangents, and since a distance is
-unchanged when both sides move together, the other side's twist gradient
-is the negative of the first's.  The keys it does not take (box-box, in
+The kernel route (:func:`query_cuda`) launches one kernel a group whose
+key is in :data:`KEYS`, back to back on the current stream: one
+instantiation a key, one thread a query (lane, gap, sub-segment, pair), or
+four lanes a query for a capsule swept against static geometry (one a
+segment).  The kernel differentiates in forward mode: the world points of
+one side carry tangents, and since a distance is unchanged when both
+sides move together, the other side's twist gradient is the negative of
+the first's.  The keys it does not take (box-box, in
 every mode) run the plain version on the card, by key and never on
 failure.
 
@@ -62,8 +64,7 @@ SOURCE = kernels.CSRC / "primitive_narrowphase.cu"
 HOST_SOURCE = kernels.CSRC / "primitive_host.cpp"
 FLAGS = [*kernels.NVCC_FLAGS, "--fmad=false"]
 HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC"]
-COUNTER = kernels.LaunchCounter()
-KERNEL = "primitive_narrowphase_kernel"   # the kernel's name in a profile
+KERNEL = "primitive_narrowphase_kernel"   # each instantiation's profile name
 RANGE = "collision.primitive"             # the profiler range of a query
 MODES = ("pairs", "moving", "static")     # discrete; swept, both moving;
 #                                           swept against static geometry
@@ -77,10 +78,25 @@ KEYS = frozenset({("pairs", k) for k in _DISCRETE}
                  | {("moving", k) for k in _DISCRETE}
                  | {("static", k) for k in _STATIC})
 MAX_DIMS = 4          # batch dims the kernel indexes
-MAX_GROUPS = 16       # groups one launch takes
-THREADS = 128         # threads a block (csrc/primitive_narrowphase.cuh)
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _LIBS = {}
+
+
+class QueryCounter(kernels.LaunchCounter):
+    """``launches``: query calls that launched the kernel, one a call (as
+    when one launch took all of a call's groups); ``kernels``: kernel
+    launches, one a group with queries."""
+
+    def __init__(self):
+        super().__init__()
+        self.kernels = 0
+
+    def reset(self):
+        super().reset()
+        self.kernels = 0
+
+
+COUNTER = QueryCounter()
 
 
 # ------------------------------------------------------- the plain version
@@ -338,9 +354,6 @@ def make_plan(scene, kind: str, like: torch.Tensor) -> Plan:
                 [g for g in groups if (g.mode, g.key) not in KEYS])
     if not taken:
         return plan
-    if len(taken) > MAX_GROUPS:
-        raise ValueError(f"{len(taken)} kernel groups; a launch takes at "
-                         f"most {MAX_GROUPS}")
     ftab, itab, coef, ploc, over = [], [], [], [], []
     row = 0
     for g in taken:
@@ -446,10 +459,10 @@ def _lib(host: bool):
     if host not in _LIBS:
         lib = ctypes.CDLL(str(build_host() if host else build()))
         fn = lib.primitive_host if host else lib.primitive_narrowphase
-        fn.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_void_p)] + (
-                [] if host else [ctypes.c_void_p])
+        longs = ctypes.POINTER(ctypes.c_longlong)
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, longs, ctypes.c_int,
+                       longs, ctypes.POINTER(ctypes.c_void_p)] + (
+                           [] if host else [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIBS[host] = fn
     return _LIBS[host]
@@ -470,8 +483,8 @@ def _plocs(plan: Plan, batch, params):
 
 
 def _launch(plan: Plan, fks, params, outs, host: bool) -> None:
-    """Check the operands and launch the kernel (``host``: run its host
-    build) on ``plan``'s kernel groups."""
+    """Check the operands and launch the kernel on ``plan``'s kernel
+    groups, one launch a group (``host``: run its host build)."""
     swept = plan.kind == "swept"
     jac = len(outs) > 1
     fk0 = fks[0]
@@ -526,29 +539,20 @@ def _launch(plan: Plan, fks, params, outs, host: bool) -> None:
                 p.stride(-1), z.stride(-2), z.stride(-1), o.stride(-2),
                 o.stride(-1)]
     lay += [pla.stride(-2), plb.stride(-2), pla.stride(-1), plb.stride(-1)]
-    groups = plan.kernel_groups
-    blocks, first = 0, []
-    for mode, key, n, row in groups:
-        first.append(blocks)
-        blocks += -(-n_batch * n // THREADS)
-    lay += [plan.n_pairs, n_dof, len(groups)]
-    for g in range(MAX_GROUPS):
-        if g < len(groups):
-            mode, (ka, kb), n, row = groups[g]
-            code = MODES.index(mode) * 16 + _KIND[ka] * 4 + _KIND[kb]
-            lay += [code, n, row, first[g]]
-        else:
-            lay += [0, 0, 0, blocks]
-    lay.append(blocks)
-    if blocks == 0:
+    lay += [plan.n_pairs, n_dof]
+    groups = [(MODES.index(mode) * 16 + _KIND[ka] * 4 + _KIND[kb], n, row)
+              for mode, (ka, kb), n, row in plan.kernel_groups
+              if n_batch * n]
+    if not groups:
         return
     ptrs = [t.data_ptr() for t in ins]
     ptrs += [t.data_ptr() for t in (plan.ftab, plan.itab, plan.coef,
                                     plan.rev)]
     ptrs += [outs[0].data_ptr()] + [
         outs[k].data_ptr() if k < len(outs) else None for k in (1, 2)]
-    args = [_DTYPES[dt], int(swept), int(jac),
-            (ctypes.c_longlong * len(lay))(*lay),
+    flat = [v for g in groups for v in g]
+    args = [_DTYPES[dt], int(jac), (ctypes.c_longlong * len(lay))(*lay),
+            len(groups), (ctypes.c_longlong * len(flat))(*flat),
             (ctypes.c_void_p * len(ptrs))(*ptrs)]
     if host:
         err = _lib(True)(*args)
@@ -560,6 +564,7 @@ def _launch(plan: Plan, fks, params, outs, host: bool) -> None:
                            f"error {err}")
     if not host:
         COUNTER.launches += 1
+        COUNTER.kernels += len(groups)
 
 
 # Floating-point operations of the kernel's functions on plain values (a
@@ -579,7 +584,9 @@ def primitive_flops(mode: str, key, jac: bool, n_dof: int) -> int:
     ``key`` as the kernel computes it: the world poses, the geometry (a
     tangent-carrying operation on N slots counted as 1 + 2N; segment_box's
     search on plain values), and with ``jac`` each endpoint's twist
-    gradient (21 a point) and joint columns (22 a joint)."""
+    gradient (21 a point) and joint columns (22 a joint).  A swept segment
+    (a sphere's one, each of a capsule's four) carries the 6 slots of its
+    two points."""
     ka, kb = key
     npts = {SPHERE: 1, CAPSULE: 2}
     if mode == "static":
@@ -589,7 +596,7 @@ def primitive_flops(mode: str, key, jac: bool, n_dof: int) -> int:
             segs = 1 if ka == SPHERE else 4
             cap = {SPHERE: (SPHERE, CAPSULE), CAPSULE: (CAPSULE, CAPSULE),
                    BOX: (CAPSULE, BOX)}[kb]
-            calls, pk, n = [cap] * segs, ka, 6 * npts[ka]
+            calls, pk, n = [cap] * segs, ka, 6
         poses, ends = 3, 2
     else:
         calls = [key] * (2 if mode == "moving" else 1)
@@ -623,8 +630,9 @@ def primitive_bytes(plan: Plan, fks, outs, params=None) -> int:
 
 def query_cuda(plan: Plan, fks, params, outs) -> None:
     """Launch the kernel on the current stream for ``plan``'s kernel
-    groups, writing their columns of ``outs`` (contiguous; see
-    :func:`query_plain`) from CUDA tensors of any strides."""
+    groups (one launch a group, back to back), writing their columns of
+    ``outs`` (contiguous; see :func:`query_plain`) from CUDA tensors of any
+    strides."""
     _launch(plan, fks, params, outs, host=False)
 
 

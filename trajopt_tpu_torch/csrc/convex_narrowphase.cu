@@ -31,19 +31,41 @@
 // torch), so edge-mode padded vertices and all-infeasible subset sets
 // (index 0) resolve as torch resolves them.
 //
-// Bound: operations.  A query costs ~27 kflop at the flagship's swept
-// shapes (fused_convex.select_flops: 16 steps x 15 subset solves of ~103
-// flop dominate) against ~0.5 kB of inputs and outputs, so at 1.35 M
-// queries the fp32 rate (67 TFLOP/s) bounds it near 0.5 ms and the bytes
-// (3.35 TB/s) near 0.2 ms.  Design: one thread a query, no shared memory.
-// The simplex, its Gram matrix, the slot indices and the best iterate live
-// in registers; the 15 subsets are solved in an unrolled branch-free loop;
-// the support scans and the SAT projections stream the query's vertices
-// and axes through L1 (a query's rows are read ITERS times).  There is no
-// early exit: the fixed ITERS steps and the best-iterate rule decide the
-// result, as in the plain version.  Broadcast inputs (stride 0) are read
-// through their strides.  The launch allocates nothing and does not
-// synchronise, so it can be captured in a CUDA graph.
+// Bound: operations.  A query costs ~27 kflop at the unified flagship's
+// swept shapes (fused_convex.select_flops: 16 steps x 15 subset solves of
+// ~103 flop dominate) against ~0.5 kB of inputs and outputs.  Under
+// --fmad=false and IEEE div.rn / sqrt.rn (each a multi-instruction
+// sequence with a branch to its slow path) a subset solve issues a few
+// hundred instructions in one dependent chain, so the kernel is bound by
+// issue and latency, not by the flop count.
+//
+// Design: one thread a query, its simplex, Gram matrix, weights and best
+// iterate in registers (measured against 2, 4, 8 and 16 lanes a query,
+// whose replicated per-step work and shuffles cost more issue slots than
+// their parallel subset solves saved: PERF.md section 6).
+//   - The fixed point: a step whose slots and weights come out bit for bit
+//     as they went in maps the state onto itself, so every later step
+//     repeats it and leaves the best iterate alone; the thread stops its
+//     query there (on the unified flagship most queries settle within a
+//     few of the 16 steps).
+//   - So that one slow query does not hold its warp, a thread takes
+//     queries<T> queries of its block's chunk (fewer when a call is too
+//     small to fill every SM's resident blocks) and runs their GJK steps
+//     in one loop, starting the next query where the last settled; the
+//     SAT phase then runs over the thread's queries in turn, from the
+//     best simplices it stored.
+//   - Vertex counts known at compile time ((A, B) = (4, 8), (2, 2) on the
+//     unified flagship, (8, 8) on the mesh arm) get their own
+//     instantiations, which stage the thread's vertex rows in shared
+//     memory, interleaved over the block's threads (conflict-free), once
+//     a query and phase.  Every other shape runs the run-time
+//     instantiation, which reads the rows through their strides and so
+//     takes any vertex count (a mesh link's hull of hundreds).
+//   - The register budget is set per precision (__launch_bounds__ minimum
+//     blocks), from measurement.
+// The launch allocates nothing and does not synchronise, so it can be
+// captured in a CUDA graph.  Registers and spills of each instantiation:
+// PERF.md section 6 (-Xptxas -v through fused_convex.build(verbose=True)).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -53,7 +75,17 @@ namespace {
 
 constexpr int MAX_DIMS = 4;
 constexpr int THREADS = 128;
-constexpr int N_TENSORS = 5;  // Va, Vb, axes, valid, cax
+constexpr int N_TENSORS = 5;             // Va, Vb, axes, valid, cax
+constexpr long long SMEM_LIMIT = 232448;
+constexpr long long SMEM_DEFAULT = 48 * 1024;
+
+// Queries a thread, and resident blocks an SM asked of the register
+// allocator (__launch_bounds__), per precision: the fastest settings
+// measured on phase 4b's calls (float: 80 registers; double: 168).
+template <typename T>
+constexpr int queries = sizeof(T) == 4 ? 8 : 16;
+template <typename T>
+constexpr int min_blocks = sizeof(T) == 4 ? 6 : 3;
 
 struct Layout {
   long long n;                           // queries
@@ -63,6 +95,7 @@ struct Layout {
   long long va_v, va_c, vb_v, vb_c;      // vertex and coordinate strides
   long long ax_k, ax_c, val_k, cax_c;    // axis row / coordinate strides
   int A, B, K, iters;
+  int per_thread;                        // queries a thread (set at launch)
 };
 
 __device__ __forceinline__ float fma_(float a, float b, float c) {
@@ -73,6 +106,12 @@ __device__ __forceinline__ double fma_(double a, double b, double c) {
 }
 __device__ __forceinline__ float sqrt_(float x) { return __fsqrt_rn(x); }
 __device__ __forceinline__ double sqrt_(double x) { return __dsqrt_rn(x); }
+__device__ __forceinline__ unsigned long long bits_(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ unsigned long long bits_(double x) {
+  return (unsigned long long)__double_as_longlong(x);
+}
 
 // _dot3: addcmul(addcmul(a0 * b0, a1, b1), a2, b2)
 template <typename T>
@@ -113,8 +152,20 @@ __device__ __forceinline__ T clamp_min(T x, T lo) {
   return x < lo ? lo : x;
 }
 
+// A thread's vertex rows staged in shared memory, interleaved with the
+// block's other threads (element (j, c) at p[(3 j + c) st]).
 template <typename T>
-struct Rows {  // a query's [n, 3] rows
+struct Staged {
+  T* p;
+  int st;
+  __device__ __forceinline__ T at(int j, int c) const {
+    return p[(3 * j + c) * st];
+  }
+};
+
+// A query's [n, 3] rows in device memory, read through their strides.
+template <typename T>
+struct Strided {
   const T* p;
   long long sv, sc;
   __device__ __forceinline__ T at(int j, int c) const {
@@ -122,20 +173,68 @@ struct Rows {  // a query's [n, 3] rows
   }
 };
 
-// _closest_on_simplex: the weights of the least-norm feasible subset
-// minimizer of the 15 subsets of the 4 points W.
+// the per-query offsets of the five inputs
+__device__ __forceinline__ void query_offsets(const Layout& L, long long q,
+                                              long long (&off)[N_TENSORS]) {
+#pragma unroll
+  for (int t = 0; t < N_TENSORS; ++t) off[t] = 0;
+  for (int d = L.nd - 1; d >= 0; --d) {
+    const long long i = q % L.size[d];
+    q /= L.size[d];
+#pragma unroll
+    for (int t = 0; t < N_TENSORS; ++t) off[t] += i * L.st[t][d];
+  }
+}
+
+// Where a query's vertex rows are read: compile-time vertex counts stage
+// them in shared memory (a thread's 3 (A + B) elements, interleaved over
+// the block's threads), the run-time instantiation reads them through
+// their strides in device memory, so that it takes any vertex count.
+template <typename T, bool STAGED>
+struct Rows;
+
 template <typename T>
-__device__ __forceinline__ void closest_on_simplex(const T (&W)[4][3],
+struct Rows<T, true> {
+  Staged<T> a, b;
+  __device__ __forceinline__ Rows(T* base, int st, int A)
+      : a{base, st}, b{base + 3 * A * st, st} {}
+  // query q's rows into the thread's staging rows
+  __device__ __forceinline__ void bind(const Layout& L, const T* Va,
+                                       const T* Vb, long long q, int A,
+                                       int B) {
+    long long off[N_TENSORS];
+    query_offsets(L, q, off);
+    for (int j = 0; j < A; ++j)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        a.p[(3 * j + c) * a.st] = Va[off[0] + j * L.va_v + c * L.va_c];
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        b.p[(3 * j + c) * b.st] = Vb[off[1] + j * L.vb_v + c * L.vb_c];
+  }
+};
+
+template <typename T>
+struct Rows<T, false> {
+  Strided<T> a, b;
+  __device__ __forceinline__ Rows(T*, int, int) {}
+  __device__ __forceinline__ void bind(const Layout& L, const T* Va,
+                                       const T* Vb, long long q, int, int) {
+    long long off[N_TENSORS];
+    query_offsets(L, q, off);
+    a = Strided<T>{Va + off[0], L.va_v, L.va_c};
+    b = Strided<T>{Vb + off[1], L.vb_v, L.vb_c};
+  }
+};
+
+// _closest_on_simplex: the weights of the least-norm feasible subset
+// minimizer of the 15 subsets of the 4 points W, given their Gram matrix.
+template <typename T>
+__device__ __forceinline__ void closest_on_simplex(const T (&G)[4][4],
+                                                   const T (&W)[4][3],
                                                    T (&out)[4]) {
   const T tiny = (T)1e-30, ridge = (T)1e-12, neg = (T)-1e-9;
-  T G[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      G[i][j] = dot3(W[i][0], W[i][1], W[i][2], W[j][0], W[j][1], W[j][2]);
-      G[j][i] = G[i][j];
-    }
   T best_n2 = (T)0;
   T best[4] = {(T)0, (T)0, (T)0, (T)0};
 #pragma unroll
@@ -205,8 +304,9 @@ __device__ __forceinline__ void closest_on_simplex(const T (&W)[4][3],
 
 // _witness: w @ V with w = zeros(n).at[idx].add(lam), summed as an fma
 // chain over the distinct indices in ascending order.
-template <typename T>
-__device__ __forceinline__ void witness(const Rows<T>& V, const int (&idx)[4],
+template <typename T, typename V>
+__device__ __forceinline__ void witness(const V& rows,
+                                        const int (&idx)[4],
                                         const T (&lam)[4], T (&out)[3]) {
   int o[4] = {idx[0], idx[1], idx[2], idx[3]};
 #pragma unroll
@@ -228,76 +328,80 @@ __device__ __forceinline__ void witness(const Rows<T>& V, const int (&idx)[4],
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    T acc = w[0] * V.at(o[0], c);
+    T acc = w[0] * rows.at(o[0], c);
 #pragma unroll
-    for (int p = 1; p < 4; ++p) acc = fma_(w[p], V.at(o[p], c), acc);
+    for (int p = 1; p < 4; ++p) acc = fma_(w[p], rows.at(o[p], c), acc);
     out[c] = acc;
   }
 }
 
-}  // namespace
+// The first extreme of the projections V[j] . u over n rows (argmin unless
+// hi).
+template <typename T, typename V>
+__device__ __forceinline__ int arg_extreme(const V& rows, int n, bool hi,
+                                           T u0, T u1, T u2) {
+  T best = dot3(rows.at(0, 0), rows.at(0, 1), rows.at(0, 2), u0, u1, u2);
+  int jb = 0;
+  for (int j = 1; j < n; ++j) {
+    const T v =
+        dot3(rows.at(j, 0), rows.at(j, 1), rows.at(j, 2), u0, u1, u2);
+    if (hi ? before_max(v, best) : before_min(v, best)) best = v, jb = j;
+  }
+  return jb;
+}
 
+// One query's GJK (_gjk_slots) state: the simplex, its Gram matrix and
+// weights, the iterate z = lam @ W, and the best iterate.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    convex_select_kernel(const T* __restrict__ Va, const T* __restrict__ Vb,
-                         const T* __restrict__ axes,
-                         const uint8_t* __restrict__ valid,
-                         const T* __restrict__ cax, const Layout L,
-                         long long* __restrict__ idA_out,
-                         long long* __restrict__ idB_out,
-                         T* __restrict__ lam_out, T* __restrict__ z_out,
-                         long long* __restrict__ k_out,
-                         uint8_t* __restrict__ flip_out,
-                         long long* __restrict__ ia_out,
-                         long long* __restrict__ ib_out) {
-  const long long q = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (q >= L.n) return;
-  long long off[N_TENSORS] = {0, 0, 0, 0, 0};
-  long long rem = q;
-  for (int d = L.nd - 1; d >= 0; --d) {
-    const long long i = rem % L.size[d];
-    rem /= L.size[d];
-#pragma unroll
-    for (int t = 0; t < N_TENSORS; ++t) off[t] += i * L.st[t][d];
-  }
-  const Rows<T> A{Va + off[0], L.va_v, L.va_c};
-  const Rows<T> B{Vb + off[1], L.vb_v, L.vb_c};
-  const Rows<T> X{axes + off[2], L.ax_k, L.ax_c};
-  const uint8_t* vmask = valid + off[3];
-  const T* cx = cax + off[4];
+struct Gjk {
+  int ia[4], ib[4];
+  T lam[4], W[4][3], G[4][4], z[3];
+  T bd2;
+  int bia[4], bib[4];
+  T blam[4];
 
-  // ---- GJK (_gjk_slots) ----
-  int ia[4] = {0, 0, 0, 0}, ib[4] = {0, 0, 0, 0};
-  T lam[4] = {(T)1, (T)0, (T)0, (T)0};
-  T W[4][3];
+  // z = lam @ W
+  __device__ __forceinline__ void iterate() {
 #pragma unroll
-  for (int s = 0; s < 4; ++s)
+    for (int c = 0; c < 3; ++c) {
+      z[c] = lam[0] * W[0][c];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) W[s][c] = A.at(0, c) - B.at(0, c);
-  T z[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    z[c] = lam[0] * W[0][c];
-#pragma unroll
-    for (int s = 1; s < 4; ++s) z[c] = fma_(lam[s], W[s][c], z[c]);
+      for (int s = 1; s < 4; ++s) z[c] = fma_(lam[s], W[s][c], z[c]);
+    }
   }
-  T bd2 = dot3(z[0], z[1], z[2], z[0], z[1], z[2]);
-  int bia[4] = {0, 0, 0, 0}, bib[4] = {0, 0, 0, 0};
-  T blam[4] = {lam[0], lam[1], lam[2], lam[3]};
 
-  for (int it = 0; it < L.iters; ++it) {
+  // the initial state: every slot at (a_0, b_0), all weight on slot 0
+  template <typename V>
+  __device__ __forceinline__ void start(const V& SA, const V& SB) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      ia[s] = ib[s] = 0;
+      lam[s] = s == 0 ? (T)1 : (T)0;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) W[s][c] = SA.at(0, c) - SB.at(0, c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        G[i][j] = dot3(W[i][0], W[i][1], W[i][2], W[j][0], W[j][1], W[j][2]);
+        G[j][i] = G[i][j];
+      }
+    iterate();
+    bd2 = dot3(z[0], z[1], z[2], z[0], z[1], z[2]);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) bia[s] = ia[s], bib[s] = ib[s],
+                                blam[s] = lam[s];
+  }
+
+  // One support step; true when it left the slots and weights bit for bit
+  // as they were (a fixed point: every later step repeats it).
+  template <typename V>
+  __device__ __forceinline__ bool step(const V& SA, int A, const V& SB,
+                                       int B) {
     // z = lam @ W is the previous step's z2 (the same operands)
-    int sa = 0, sb = 0;
-    T va = dot3(A.at(0, 0), A.at(0, 1), A.at(0, 2), z[0], z[1], z[2]);
-    for (int j = 1; j < L.A; ++j) {
-      const T v = dot3(A.at(j, 0), A.at(j, 1), A.at(j, 2), z[0], z[1], z[2]);
-      if (before_min(v, va)) va = v, sa = j;
-    }
-    T vb = dot3(B.at(0, 0), B.at(0, 1), B.at(0, 2), z[0], z[1], z[2]);
-    for (int j = 1; j < L.B; ++j) {
-      const T v = dot3(B.at(j, 0), B.at(j, 1), B.at(j, 2), z[0], z[1], z[2]);
-      if (before_max(v, vb)) vb = v, sb = j;
-    }
+    const int sa = arg_extreme(SA, A, false, z[0], z[1], z[2]);
+    const int sb = arg_extreme(SB, B, true, z[0], z[1], z[2]);
     // _merge_duplicates, then evict the first least-weight slot
     T ml[4] = {lam[0], lam[1], lam[2], lam[3]};
 #pragma unroll
@@ -313,21 +417,35 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 1; i < 4; ++i)
       if (before_min(ml[i], mv)) mv = ml[i], slot = i;
+    bool same = true;
 #pragma unroll
     for (int s = 0; s < 4; ++s)
       if (s == slot) {
+        same = ia[s] == sa && ib[s] == sb;
         ia[s] = sa;
         ib[s] = sb;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) W[s][c] = A.at(sa, c) - B.at(sb, c);
+        for (int c = 0; c < 3; ++c) W[s][c] = SA.at(sa, c) - SB.at(sb, c);
       }
-    closest_on_simplex(W, lam);
+    // the Gram matrix's row and column of the new slot (the others keep
+    // their operands, so their values)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      z[c] = lam[0] * W[0][c];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int s = 1; s < 4; ++s) z[c] = fma_(lam[s], W[s][c], z[c]);
+      for (int j = 0; j <= i; ++j)
+        if (i == slot || j == slot) {
+          G[i][j] = dot3(W[i][0], W[i][1], W[i][2], W[j][0], W[j][1],
+                         W[j][2]);
+          G[j][i] = G[i][j];
+        }
+    T nl[4];
+    closest_on_simplex(G, W, nl);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      same = same && bits_(nl[s]) == bits_(lam[s]);
+      lam[s] = nl[s];
     }
+    iterate();
     const T d2 = dot3(z[0], z[1], z[2], z[0], z[1], z[2]);
     if (d2 < bd2) {  // the BEST iterate, not the last
       bd2 = d2;
@@ -335,102 +453,208 @@ __global__ void __launch_bounds__(THREADS)
       for (int s = 0; s < 4; ++s) bia[s] = ia[s], bib[s] = ib[s],
                                   blam[s] = lam[s];
     }
+    return same;
+  }
+};
+
+}  // namespace
+
+// CA, CB: the vertex counts when known at compile time, else 0 (read from
+// the layout).  Thread t of block b takes the queries
+// (b Q + m) blockDim.x + t, m < Q = L.per_thread; with compile-time counts
+// 3 (A + B) elements of dynamic shared memory a thread, else none.
+template <typename T, int CA, int CB>
+__global__ void __launch_bounds__(THREADS, min_blocks<T>)
+    convex_select_kernel(const T* __restrict__ Va, const T* __restrict__ Vb,
+                         const T* __restrict__ axes,
+                         const uint8_t* __restrict__ valid,
+                         const T* __restrict__ cax, const Layout L,
+                         long long* __restrict__ idA_out,
+                         long long* __restrict__ idB_out,
+                         T* __restrict__ lam_out, T* __restrict__ z_out,
+                         long long* __restrict__ k_out,
+                         uint8_t* __restrict__ flip_out,
+                         long long* __restrict__ ia_out,
+                         long long* __restrict__ ib_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int A = CA > 0 ? CA : L.A;
+  const int B = CB > 0 ? CB : L.B;
+  const int K = L.K;
+  const int st = blockDim.x;
+  Rows<T, (CA > 0)> R(reinterpret_cast<T*>(smem_raw) + threadIdx.x, st, A);
+  const auto& SA = R.a;
+  const auto& SB = R.b;
+  const int Q = L.per_thread;
+  const long long first = (long long)blockIdx.x * Q * st + threadIdx.x;
+
+  // ---- GJK of the thread's queries, one step a pass: a query that
+  // reaches its fixed point or ITERS steps stores its best simplex and
+  // hands the loop to the next ----
+  Gjk<T> g;
+  int m = 0, it = 0;
+  bool fresh = true;
+  for (;;) {
+    const long long q = first + (long long)m * st;
+    if (fresh) {
+      if (m >= Q || q >= L.n) break;
+      R.bind(L, Va, Vb, q, A, B);
+      g.start(SA, SB);
+      it = 0;
+      fresh = false;
+    }
+    bool done = it >= L.iters;
+    if (!done) {
+      done = g.step(SA, A, SB, B);
+      done = done || ++it >= L.iters;
+    }
+    if (done) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        idA_out[q * 4 + s] = g.bia[s];
+        idB_out[q * 4 + s] = g.bib[s];
+        lam_out[q * 4 + s] = g.blam[s];
+      }
+      ++m;
+      fresh = true;
+    }
   }
 
-  // ---- the witness vector, the last SAT axis ----
-  T wa[3], wb[3], w[3];
-  witness(A, bia, blam, wa);
-  witness(B, bib, blam, wb);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) w[c] = wa[c] - wb[c];
-
-  // ---- SAT winner (_sat_select) over [axes, cax, w] ----
+  // ---- the witness vector and the SAT winner (_sat_select) over
+  // [axes, cax, w] of each of the thread's queries ----
   const T ninf = -(T)CUDART_INF;
-  int kbest = 0;
-  T gbest = (T)0, gab_k = (T)0, gba_k = (T)0;
-  for (int k = 0; k < L.K + 2; ++k) {
+  for (int mm = 0; mm < Q; ++mm) {
+    const long long q = first + (long long)mm * st;
+    if (q >= L.n) break;
+    R.bind(L, Va, Vb, q, A, B);
+    int bia[4], bib[4];
+    T blam[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      bia[s] = (int)idA_out[q * 4 + s];
+      bib[s] = (int)idB_out[q * 4 + s];
+      blam[s] = lam_out[q * 4 + s];
+    }
+    T wa[3], wb[3], w[3];
+    witness(SA, bia, blam, wa);
+    witness(SB, bib, blam, wb);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) w[c] = wa[c] - wb[c];
+    long long off[N_TENSORS];
+    query_offsets(L, q, off);
+    const Strided<T> X{axes + off[2], L.ax_k, L.ax_c};
+    const uint8_t* vmask = valid + off[3];
+    const T* cx = cax + off[4];
+    int kbest = 0;
+    T gbest = (T)0, gab_k = (T)0, gba_k = (T)0;
+    for (int k = 0; k < K + 2; ++k) {
+      T u0, u1, u2;
+      bool ok = true;
+      if (k < K) {
+        u0 = X.at(k, 0), u1 = X.at(k, 1), u2 = X.at(k, 2);
+        ok = vmask[k * L.val_k] != 0;
+      } else if (k == K) {
+        u0 = cx[0], u1 = cx[L.cax_c], u2 = cx[2 * L.cax_c];
+      } else {
+        u0 = w[0], u1 = w[1], u2 = w[2];
+      }
+      T mna = dot3(SA.at(0, 0), SA.at(0, 1), SA.at(0, 2), u0, u1, u2);
+      T mxa = mna;
+      for (int j = 1; j < A; ++j) {
+        const T v = dot3(SA.at(j, 0), SA.at(j, 1), SA.at(j, 2), u0, u1, u2);
+        if (nan_(v) || v < mna) mna = v;  // amin / amax propagate NaN
+        if (nan_(v) || v > mxa) mxa = v;
+      }
+      T mnb = dot3(SB.at(0, 0), SB.at(0, 1), SB.at(0, 2), u0, u1, u2);
+      T mxb = mnb;
+      for (int j = 1; j < B; ++j) {
+        const T v = dot3(SB.at(j, 0), SB.at(j, 1), SB.at(j, 2), u0, u1, u2);
+        if (nan_(v) || v < mnb) mnb = v;
+        if (nan_(v) || v > mxb) mxb = v;
+      }
+      const T nrm = sqrt_(sq3(u0, u1, u2) + (T)1e-24);
+      const T gba = (mnb - mxa) / nrm;
+      const T gab = (mna - mxb) / nrm;
+      // torch.maximum: a NaN wins
+      T gap = (nan_(gba) || nan_(gab)) ? gba + gab : (gba > gab ? gba : gab);
+      if (!(ok && nrm > (T)1e-9)) gap = ninf;
+      if (k == 0 || before_max(gap, gbest)) {
+        gbest = gap, kbest = k, gab_k = gab, gba_k = gba;
+      }
+    }
+    const bool flip = gab_k > gba_k;  // a lies above b along the winner
     T u0, u1, u2;
-    bool ok = true;
-    if (k < L.K) {
-      u0 = X.at(k, 0), u1 = X.at(k, 1), u2 = X.at(k, 2);
-      ok = vmask[k * L.val_k] != 0;
-    } else if (k == L.K) {
+    if (kbest < K) {
+      u0 = X.at(kbest, 0), u1 = X.at(kbest, 1), u2 = X.at(kbest, 2);
+    } else if (kbest == K) {
       u0 = cx[0], u1 = cx[L.cax_c], u2 = cx[2 * L.cax_c];
     } else {
       u0 = w[0], u1 = w[1], u2 = w[2];
     }
-    T mna = dot3(A.at(0, 0), A.at(0, 1), A.at(0, 2), u0, u1, u2), mxa = mna;
-    for (int j = 1; j < L.A; ++j) {
-      const T v = dot3(A.at(j, 0), A.at(j, 1), A.at(j, 2), u0, u1, u2);
-      if (nan_(v) || v < mna) mna = v;  // amin / amax propagate NaN
-      if (nan_(v) || v > mxa) mxa = v;
-    }
-    T mnb = dot3(B.at(0, 0), B.at(0, 1), B.at(0, 2), u0, u1, u2), mxb = mnb;
-    for (int j = 1; j < L.B; ++j) {
-      const T v = dot3(B.at(j, 0), B.at(j, 1), B.at(j, 2), u0, u1, u2);
-      if (nan_(v) || v < mnb) mnb = v;
-      if (nan_(v) || v > mxb) mxb = v;
-    }
-    const T nrm = sqrt_(sq3(u0, u1, u2) + (T)1e-24);
-    const T gba = (mnb - mxa) / nrm;
-    const T gab = (mna - mxb) / nrm;
-    // torch.maximum: a NaN wins
-    T gap = (nan_(gba) || nan_(gab)) ? gba + gab : (gba > gab ? gba : gab);
-    if (!(ok && nrm > (T)1e-9)) gap = ninf;
-    if (k == 0 || before_max(gap, gbest)) {
-      gbest = gap, kbest = k, gab_k = gab, gba_k = gba;
-    }
-  }
-  const bool flip = gab_k > gba_k;  // a lies above b along the winner
-  T u0, u1, u2;
-  if (kbest < L.K) {
-    u0 = X.at(kbest, 0), u1 = X.at(kbest, 1), u2 = X.at(kbest, 2);
-  } else if (kbest == L.K) {
-    u0 = cx[0], u1 = cx[L.cax_c], u2 = cx[2 * L.cax_c];
-  } else {
-    u0 = w[0], u1 = w[1], u2 = w[2];
-  }
-  // a's vertex: argmin of its projections if flipped, else argmax; b's the
-  // other way round
-  int sa = 0, sb = 0;
-  T pa = dot3(A.at(0, 0), A.at(0, 1), A.at(0, 2), u0, u1, u2);
-  for (int j = 1; j < L.A; ++j) {
-    const T v = dot3(A.at(j, 0), A.at(j, 1), A.at(j, 2), u0, u1, u2);
-    if (flip ? before_min(v, pa) : before_max(v, pa)) pa = v, sa = j;
-  }
-  T pb = dot3(B.at(0, 0), B.at(0, 1), B.at(0, 2), u0, u1, u2);
-  for (int j = 1; j < L.B; ++j) {
-    const T v = dot3(B.at(j, 0), B.at(j, 1), B.at(j, 2), u0, u1, u2);
-    if (flip ? before_max(v, pb) : before_min(v, pb)) pb = v, sb = j;
-  }
-
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    idA_out[q * 4 + s] = bia[s];
-    idB_out[q * 4 + s] = bib[s];
-    lam_out[q * 4 + s] = blam[s];
+    for (int c = 0; c < 3; ++c) z_out[q * 3 + c] = w[c];
+    k_out[q] = kbest;
+    flip_out[q] = flip ? 1 : 0;
+    // a's vertex: argmin of its projections if flipped, else argmax; b's
+    // the other way round
+    ia_out[q] = arg_extreme(SA, A, !flip, u0, u1, u2);
+    ib_out[q] = arg_extreme(SB, B, flip, u0, u1, u2);
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) z_out[q * 3 + c] = w[c];
-  k_out[q] = kbest;
-  flip_out[q] = flip ? 1 : 0;
-  ia_out[q] = sa;
-  ib_out[q] = sb;
 }
 
 namespace {
 
-template <typename T>
+template <typename T, int CA, int CB>
 cudaError_t launch(const void* va, const void* vb, const void* ax,
                    const void* valid, const void* cax, const Layout& L,
                    void* idA, void* idB, void* lam, void* z, void* k,
                    void* flip, void* ia, void* ib, cudaStream_t stream) {
-  const long long blocks = (L.n + THREADS - 1) / THREADS;
-  convex_select_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  static_assert(3LL * (CA + CB) * sizeof(T) * THREADS <= SMEM_LIMIT,
+                "a compile-time shape's staged rows must fit a full block");
+  const long long smem = 3LL * (CA + CB) * (long long)sizeof(T) * THREADS;
+  auto kernel = convex_select_kernel<T, CA, CB>;
+  if (smem > SMEM_DEFAULT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  // queries a thread: queries<T>, or fewer where that would leave an SM
+  // short of the min_blocks<T> blocks its registers hold
+  int dev = 0, sms = 1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  Layout M = L;
+  const long long slots = (long long)THREADS * sms * min_blocks<T>;
+  const long long spread = (L.n + slots - 1) / slots;
+  M.per_thread = (int)(spread < queries<T> ? spread : queries<T>);
+  const long long chunk = (long long)THREADS * M.per_thread;
+  const long long blocks = (L.n + chunk - 1) / chunk;
+  kernel<<<(unsigned)blocks, THREADS, (size_t)smem, stream>>>(
       (const T*)va, (const T*)vb, (const T*)ax, (const uint8_t*)valid,
-      (const T*)cax, L, (long long*)idA, (long long*)idB, (T*)lam, (T*)z,
+      (const T*)cax, M, (long long*)idA, (long long*)idB, (T*)lam, (T*)z,
       (long long*)k, (uint8_t*)flip, (long long*)ia, (long long*)ib);
   return cudaGetLastError();
+}
+
+// the instantiation of (A, B): compile-time vertex counts for the shapes
+// the paths run, the run-time one for every other shape
+template <typename T>
+cudaError_t dispatch(const void* va, const void* vb, const void* ax,
+                     const void* valid, const void* cax, const Layout& L,
+                     void* idA, void* idB, void* lam, void* z, void* k,
+                     void* flip, void* ia, void* ib, cudaStream_t s) {
+  if (L.A == 4 && L.B == 8)
+    return launch<T, 4, 8>(va, vb, ax, valid, cax, L, idA, idB, lam, z, k,
+                           flip, ia, ib, s);
+  if (L.A == 2 && L.B == 2)
+    return launch<T, 2, 2>(va, vb, ax, valid, cax, L, idA, idB, lam, z, k,
+                           flip, ia, ib, s);
+  if (L.A == 8 && L.B == 8)
+    return launch<T, 8, 8>(va, vb, ax, valid, cax, L, idA, idB, lam, z, k,
+                           flip, ia, ib, s);
+  return launch<T, 0, 0>(va, vb, ax, valid, cax, L, idA, idB, lam, z, k,
+                         flip, ia, ib, s);
 }
 
 }  // namespace
@@ -464,15 +688,15 @@ extern "C" int convex_select(int dtype, const void* va, const void* vb,
   L.B = (int)lay[p++];
   L.K = (int)lay[p++];
   L.iters = (int)lay[p++];
-  if (L.nd < 0 || L.nd > MAX_DIMS || L.A < 1 || L.B < 1 || L.K < 0 ||
-      L.iters < 0 || L.n / THREADS >= 0x7fffffffLL)
+  if (L.n < 1 || L.nd < 0 || L.nd > MAX_DIMS || L.A < 1 || L.B < 1 ||
+      L.K < 0 || L.iters < 0 || L.n >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch<float>(va, vb, ax, valid, cax, L, idA, idB, lam, z, k,
-                              flip, ia, ib, s);
+    return (int)dispatch<float>(va, vb, ax, valid, cax, L, idA, idB, lam, z,
+                                k, flip, ia, ib, s);
   if (dtype == 1)
-    return (int)launch<double>(va, vb, ax, valid, cax, L, idA, idB, lam, z,
-                               k, flip, ia, ib, s);
+    return (int)dispatch<double>(va, vb, ax, valid, cax, L, idA, idB, lam,
+                                 z, k, flip, ia, ib, s);
   return (int)cudaErrorInvalidValue;
 }

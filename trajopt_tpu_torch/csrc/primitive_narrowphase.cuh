@@ -53,10 +53,11 @@
 namespace pn {
 
 constexpr int MAX_DIMS = 4;
-constexpr int MAX_GROUPS = 16;
 constexpr int N_IN = 10;       // R0 p0 R1 p1 z0 o0 z1 o1 pla plb
 constexpr int SPH = 0, CAP = 1, BOX = 2;
 constexpr int THREADS = 128;
+constexpr int SEGS = 4;        // lanes a query of a capsule swept against
+                               // static geometry: one a segment
 
 // The launch's shapes and strides, in elements (fused_primitive._launch
 // writes them in this order).
@@ -69,11 +70,13 @@ struct Layout {
     long long R_l, R_r, R_c, p_l, p_c, z_j, z_c, o_j, o_c;
   } end[2];
   long long pl_p[2], pl_c[2];        // each side's local centers
-  long long P, n_dof, n_groups;
-  struct Group {                     // code = mode * 16 + ka * 4 + kb
-    long long code, pg, row, first_block;
-  } group[MAX_GROUPS];
-  long long blocks;
+  long long P, n_dof;
+};
+
+// One group of a launch: its key, pairs and first pair row.
+struct Group {
+  long long code;                    // mode * 16 + ka * 4 + kb
+  long long pg, row;
 };
 
 template <typename T>
@@ -677,16 +680,17 @@ PN_HD void min_weights(T a, T b, T& wa, T& wb) {
 }
 
 // joint-space row w * coef_j * (z_j . gw - (z_j x o_j) . gv | z_j . gv)
-// of the twist gradient (gw, gv) at endpoint e
+// of the twist gradient (gw, gv) at endpoint e: columns j0, j0 + dj, ...
 template <typename T>
 PN_HD void jac_row(const Layout& L, const Ptrs<T>& P,
                    const long long (&off)[N_IN], int e, long long i,
-                   const T (&gw)[3], const T (&gv)[3], T w, T* out) {
+                   const T (&gw)[3], const T (&gv)[3], T w, T* out,
+                   int j0 = 0, int dj = 1) {
   const Layout::End& E = L.end[e];
   const T* zb = P.in[4 + 2 * e] + off[4 + 2 * e];
   const T* ob = P.in[5 + 2 * e] + off[5 + 2 * e];
   const T* coef = P.coef + i * L.n_dof;
-  for (int j = 0; j < (int)L.n_dof; ++j) {
+  for (int j = j0; j < (int)L.n_dof; j += dj) {
     T c = coef[j];
     if (c == T(0) || w == T(0)) {
       out[j] = T(0);
@@ -704,16 +708,16 @@ PN_HD void jac_row(const Layout& L, const Ptrs<T>& P,
   }
 }
 
-// twist gradient of the n points x (world positions) whose tangent
-// slots start at s0, from the value's tangents
-template <typename T, int N>
-PN_HD void twist(const Dual<T, N>& d, const V3<Dual<T, N>>* x, int n, int s0,
-                 T sign, T (&gw)[3], T (&gv)[3]) {
+// twist gradient of the n points at world positions pos, whose tangents
+// are dd[3 m .. 3 m + 2]
+template <typename T>
+PN_HD void twist_of(const T* dd, const T (*pos)[3], int n, T sign,
+                    T (&gw)[3], T (&gv)[3]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) gw[k] = gv[k] = T(0);
   for (int m = 0; m < n; ++m) {
-    V3<T> g{{d.d[s0 + 3 * m], d.d[s0 + 3 * m + 1], d.d[s0 + 3 * m + 2]}};
-    V3<T> p{{x[m].c[0].v, x[m].c[1].v, x[m].c[2].v}};
+    V3<T> g{{dd[3 * m], dd[3 * m + 1], dd[3 * m + 2]}};
+    V3<T> p{{pos[m][0], pos[m][1], pos[m][2]}};
     V3<T> pg = cross(p, g);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -721,6 +725,18 @@ PN_HD void twist(const Dual<T, N>& d, const V3<Dual<T, N>>* x, int n, int s0,
       gv[k] += sign * g.c[k];
     }
   }
+}
+
+// twist gradient of the n points x whose tangent slots start at s0, from
+// the value's tangents
+template <typename T, int N>
+PN_HD void twist(const Dual<T, N>& d, const V3<Dual<T, N>>* x, int n, int s0,
+                 T sign, T (&gw)[3], T (&gv)[3]) {
+  T pos[2][3];
+  for (int m = 0; m < n; ++m)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pos[m][k] = x[m].c[k].v;
+  twist_of(d.d + s0, pos, n, sign, gw, gv);
 }
 
 // points that carry a sphere's (1) or a capsule's (2) tangents
@@ -787,99 +803,159 @@ PN_HD void query(const Layout& L, const Ptrs<T>& P, long long b, long long i) {
       }
     }
   } else {
-    // a sphere or capsule sweeping against static side b
-    constexpr int NP = n_points<KA>;
-    using S = typename std::conditional<JAC, Dual<T, 6 * NP>, T>::type;
+    // a sphere sweeping against static side b: the capsule of its two
+    // centers (a capsule's four segments: capsule_static)
+    static_assert(KA == SPH, "a swept capsule runs capsule_static");
+    using S = typename std::conditional<JAC, Dual<T, 6>, T>::type;
     Geo<T> ga0, ga1, gb;
     geo(L, P, off, 0, 0, i, ga0);
     geo(L, P, off, 1, 0, i, ga1);
     geo(L, P, off, 0, 1, i, gb);
-    V3<S> x[2][NP];
+    V3<S> x[2][1];
     points<KA>(ga0, 0, x[0]);
-    points<KA>(ga1, 3 * NP, x[1]);
+    points<KA>(ga1, 3, x[1]);
     const T ra = ga0.prm[0], rb = gb.prm[0];
     S d;
-    if constexpr (KA == SPH) {
-      if constexpr (KB == SPH)
-        d = sphere_capsule(lift<S>(gb.p), rb, x[0][0], x[1][0], ra);
-      else if constexpr (KB == CAP)
-        d = capsule_capsule(x[0][0], x[1][0], ra, lift<S>(gb.ea),
-                            lift<S>(gb.eb), rb);
-      else
-        d = capsule_box(x[0][0], x[1][0], ra, gb.R, gb.p, gb.prm);
-    } else {
-      // the two swept edge segments and the two endpoint capsules
-      const V3<S>* segs[4][2] = {{&x[0][0], &x[1][0]}, {&x[0][1], &x[1][1]},
-                                 {&x[0][0], &x[0][1]}, {&x[1][0], &x[1][1]}};
-      S ds[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const V3<S>& s0 = *segs[k][0];
-        const V3<S>& s1 = *segs[k][1];
-        if constexpr (KB == SPH)
-          ds[k] = sphere_capsule(lift<S>(gb.p), rb, s0, s1, ra);
-        else if constexpr (KB == CAP)
-          ds[k] = capsule_capsule(s0, s1, ra, lift<S>(gb.ea),
-                                  lift<S>(gb.eb), rb);
-        else
-          ds[k] = capsule_box(s0, s1, ra, gb.R, gb.p, gb.prm);
-      }
-      d = amin_n(ds, 4);
-    }
+    if constexpr (KB == SPH)
+      d = sphere_capsule(lift<S>(gb.p), rb, x[0][0], x[1][0], ra);
+    else if constexpr (KB == CAP)
+      d = capsule_capsule(x[0][0], x[1][0], ra, lift<S>(gb.ea),
+                          lift<S>(gb.eb), rb);
+    else
+      d = capsule_box(x[0][0], x[1][0], ra, gb.R, gb.p, gb.prm);
     P.d[o] = val(d);
     if constexpr (JAC) {
       for (int e = 0; e < 2; ++e) {
         T gw[3], gv[3];
-        twist(d, x[e], NP, 3 * NP * e, T(1), gw, gv);
+        twist(d, x[e], 1, 3 * e, T(1), gw, gv);
         jac_row(L, P, off, e, i, gw, gv, T(1), P.J[e] + o * L.n_dof);
       }
     }
   }
 }
 
-// Query qi of group g: the group's code picks the instantiation.
-template <typename T, bool SWEPT, bool JAC>
-PN_HD void run_query(const Layout& L, const Ptrs<T>& P, int g, long long qi) {
-  const Layout::Group& G = L.group[g];
-  if (qi >= L.n_batch * G.pg) return;
-  const long long b = qi / G.pg, i = G.row + qi % G.pg;
-#define PN_CASE(MODE, KA, KB)                 \
-  case MODE * 16 + KA * 4 + KB:               \
-    query<T, MODE, KA, KB, JAC>(L, P, b, i);  \
-    return;
-  if constexpr (!SWEPT) {
-    switch ((int)G.code) {
-      PN_CASE(0, SPH, SPH)
-      PN_CASE(0, SPH, CAP)
-      PN_CASE(0, SPH, BOX)
-      PN_CASE(0, CAP, CAP)
-      PN_CASE(0, CAP, BOX)
-    }
-  } else {
-    switch ((int)G.code) {
-      PN_CASE(1, SPH, SPH)
-      PN_CASE(1, SPH, CAP)
-      PN_CASE(1, SPH, BOX)
-      PN_CASE(1, CAP, CAP)
-      PN_CASE(1, CAP, BOX)
-      PN_CASE(2, SPH, SPH)
-      PN_CASE(2, SPH, CAP)
-      PN_CASE(2, SPH, BOX)
-      PN_CASE(2, CAP, SPH)
-      PN_CASE(2, CAP, CAP)
-      PN_CASE(2, CAP, BOX)
-      PN_CASE(2, BOX, SPH)
-      PN_CASE(2, BOX, CAP)
-    }
-  }
-#undef PN_CASE
+// ------------------------------- a capsule swept against static geometry
+//
+// The swept capsule's distance is the amin over four segments: the sweeps
+// of its two ends and the capsule at either endpoint.  Its four points
+// p = 2 e + m (end m of endpoint e's capsule) carry the tangent slots
+// 3 p .. 3 p + 2 of the value's 12; segment k runs from point
+// seg_pt(k, 0) to seg_pt(k, 1) and touches only those 6 slots, so each
+// segment is evaluated on its own with 6 slots (one lane each on the card,
+// a loop of four on the host) and amin_segments adds the slots up.
+
+// point m (0, 1) of segment k: {0, 2}, {1, 3}, {0, 1}, {2, 3}
+PN_HD constexpr int seg_pt(int k, int m) {
+  return k == 0 ? 2 * m : k == 1 ? 1 + 2 * m : k == 2 ? m : 2 + m;
 }
 
-// The group of block blk (groups are laid out in order of first_block).
-PN_HD int group_of(const Layout& L, long long blk) {
-  int g = 0;
-  while (g + 1 < (int)L.n_groups && blk >= L.group[g + 1].first_block) ++g;
-  return g;
+// the four points' world positions of pair row i at batch offsets off
+template <typename T>
+PN_HD void capsule_points(const Layout& L, const Ptrs<T>& P,
+                          const long long (&off)[N_IN], long long i,
+                          T (&pts)[4][3], T& ra) {
+  for (int e = 0; e < 2; ++e) {
+    Geo<T> g;
+    geo(L, P, off, e, 0, i, g);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      pts[2 * e][k] = g.ea[k];
+      pts[2 * e + 1][k] = g.eb[k];
+    }
+    if (e == 0) ra = g.prm[0];
+  }
 }
+
+// segment k's distance to static side b (world data gb), its two points'
+// tangents in slots 0-5 (the points picked by compile-time indices, so
+// that a run-time k keeps them in registers)
+template <typename T, int KB, bool JAC>
+PN_HD typename std::conditional<JAC, Dual<T, 6>, T>::type capsule_segment(
+    const T (&pts)[4][3], int k, T ra, const Geo<T>& gb) {
+  using S = typename std::conditional<JAC, Dual<T, 6>, T>::type;
+  T a[3], b[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    a[c] = pts[seg_pt(0, 0)][c], b[c] = pts[seg_pt(0, 1)][c];
+#pragma unroll
+  for (int kk = 1; kk < SEGS; ++kk)
+    if (kk == k)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        a[c] = pts[seg_pt(kk, 0)][c], b[c] = pts[seg_pt(kk, 1)][c];
+  const V3<S> s0 = seeded<S>(a, 0);
+  const V3<S> s1 = seeded<S>(b, 3);
+  const T rb = gb.prm[0];
+  if constexpr (KB == SPH)
+    return sphere_capsule(lift<S>(gb.p), rb, s0, s1, ra);
+  else if constexpr (KB == CAP)
+    return capsule_capsule(s0, s1, ra, lift<S>(gb.ea), lift<S>(gb.eb), rb);
+  else
+    return capsule_box(s0, s1, ra, gb.R, gb.p, gb.prm);
+}
+
+// amin_n over the four segments' values v with 12 slots: the minimum (a
+// NaN wins), its tangents the sum over the tied segments in k order,
+// divided by their count; get(k, s) is segment k's tangent s (0-5).  A
+// segment adds only to the slots of its two points: the slots it does not
+// touch would add exact zeros.
+template <typename T, typename Get>
+PN_HD Dual<T, 12> amin_segments(const T (&v)[SEGS], Get get) {
+  const T m = amin_n(v, SEGS);
+  Dual<T, 12> r(m);
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < SEGS; ++k)
+    if (v[k] == m) {
+      ++count;
+#pragma unroll
+      for (int s = 0; s < 6; ++s) {
+        const int slot = 3 * seg_pt(k, s / 3) + s % 3;
+        r.d[slot] = r.d[slot] + get(k, s);
+      }
+    }
+  if (count > 1)
+#pragma unroll
+    for (int s = 0; s < 12; ++s) r.d[s] = r.d[s] / T(count);
+  return r;
+}
+
+// The rest of a query of a capsule swept against static geometry once the
+// four segments' values v are known (get(k, s): segment k's tangent s):
+// the distance and, with JAC, each endpoint's joint-space row, columns
+// lane, lane + lanes, ...; stores only when live.
+template <typename T, bool JAC, typename Get>
+PN_HD void capsule_static_finish(const Layout& L, const Ptrs<T>& P,
+                                 const long long (&off)[N_IN], long long i,
+                                 long long o, const T (&pts)[4][3],
+                                 const T (&v)[SEGS], Get get, int lane,
+                                 int lanes, bool live) {
+  if constexpr (!JAC) {
+    if (live && lane == 0) P.d[o] = amin_n(v, SEGS);
+  } else {
+    const Dual<T, 12> d = amin_segments(v, get);
+    if (!live) return;
+    if (lane == 0) P.d[o] = d.v;
+    for (int e = 0; e < 2; ++e) {
+      T gw[3], gv[3];
+      twist_of(d.d + 6 * e, pts + 2 * e, 2, T(1), gw, gv);
+      jac_row(L, P, off, e, i, gw, gv, T(1), P.J[e] + o * L.n_dof, lane,
+              lanes);
+    }
+  }
+}
+
+// the queries a group of n_batch x pg queries launches: one lane a query,
+// SEGS for a capsule swept against static geometry
+template <int MODE, int KA>
+constexpr int lanes_of = MODE == 2 && KA == CAP ? SEGS : 1;
+
+// Every group key the kernel takes: X(MODE, KA, KB) for each
+#define PN_KEYS(X)                                                        \
+  X(0, SPH, SPH) X(0, SPH, CAP) X(0, SPH, BOX) X(0, CAP, CAP)             \
+  X(0, CAP, BOX) X(1, SPH, SPH) X(1, SPH, CAP) X(1, SPH, BOX)             \
+  X(1, CAP, CAP) X(1, CAP, BOX) X(2, SPH, SPH) X(2, SPH, CAP)             \
+  X(2, SPH, BOX) X(2, CAP, SPH) X(2, CAP, CAP) X(2, CAP, BOX)             \
+  X(2, BOX, SPH) X(2, BOX, CAP)
 
 }  // namespace pn

@@ -77,8 +77,9 @@ def build_library(source: Path, verbose: bool = False,
     """Compile ``source`` (once per source, compiler and flag hash) and
     return the library path: with ``nvcc`` and :data:`NVCC_FLAGS` unless
     ``compiler`` and ``flags`` name others (the host C++ QP takes ``g++``).
-    ``verbose`` rebuilds with ``-Xptxas -v`` and prints its report
-    (registers, shared memory, spills)."""
+    ``verbose`` rebuilds with ``-Xptxas -v`` and prints its report, one
+    line an entry function (:func:`ptxas_summary`: registers, shared
+    memory, spills)."""
     flags = NVCC_FLAGS if flags is None else flags
     name = "nvcc" if compiler is None else compiler
     src = _with_headers(source)
@@ -97,6 +98,38 @@ def build_library(source: Path, verbose: bool = False,
         raise RuntimeError(f"{name} failed on {source.name} "
                            f"({res.returncode}):\n{res.stderr}")
     if verbose:
-        print(res.stderr.strip())
+        print("\n".join(ptxas_summary(res.stderr)))
     os.replace(tmp, out)
     return out
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names of mangled symbols (as given where ``c++filt`` is
+    missing)."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line an entry function of an ``-Xptxas -v`` report: its name,
+    registers, shared memory, stack frame and spill bytes."""
+    entries, cur = [], None
+    for line in report.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            cur = {"name": line.split("'")[1]}
+            entries.append(cur)
+        elif cur is None:
+            continue
+        elif "bytes stack frame" in line:
+            cur["frame"] = line
+        elif line.startswith("ptxas info") and "Used" in line:
+            cur["used"] = line.split(":", 1)[1].strip()
+    names = _demangle([e["name"] for e in entries])
+    return [f"{n}: {e.get('used', '?')}; {e.get('frame', '?')}"
+            for n, e in zip(names, entries)]
