@@ -138,6 +138,21 @@ Phases, each of which must pass:
    at most 1 % of the flagship and arm7 lanes and converged lanes' x by
    1e-3 (the hard mix is held to its verified limit); then phase 5's small
    references captured in float64 against the CPU, to 1e-9.
+14. the external check: the final trajectories of the flagship (phase
+   6), arm7 dense (7), the hard mix (8), the unified flagship (11 (a))
+   and the mesh arm's small solve (11 (c)), each certified by
+   ``trajopt_tpu_torch/external_verify.py`` (numpy FK, its own vertex
+   forms, 0.025 rad samples, support-function certificates on the card,
+   scipy's exact distances on the host; nothing of the solver's FK or
+   narrowphase) and held against the swept check (``swept_verify``, the
+   hand kernels): the script's JSON fields a path, the swept check less
+   the tight sampled clearance (within 1e-3 m), and the phase's time.
+   Fails on a swept-verified lane with a sample the exact solver finds
+   more than 1e-3 m deep, on fewer lanes certified free than the path's
+   limit (243/256, 122/128; the mesh arm's lanes cross its post, in the
+   JAX package too, so there: every lane the swept check verifies, and
+   the same verdict on every lane).  Phase 8 prints the index and status
+   of every lane that does not converge.
 
 Phases 6-12 run captured (the solver captures on the card); each measured
 solve follows a warm-up on the same batch, which makes its captures, and
@@ -154,6 +169,15 @@ the pr2ish first QP's rows (against float64), and the JSON references of
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
+
+The verifier alone on the card (the flagship solved on 100 lanes, 30 %
+on borderline goals, then certified; ``BENCH_LVS`` sets the LVS
+sub-steps):
+
+    python3 -m trajopt_tpu_torch.external_verify 100
+
+and its CPU test (float64, against the JAX package's script and FK):
+``python -m pytest tests/test_torch_external_verify.py``.
 
 The last line of standard output is ``{"ok": true, "device": ...}``; the
 line before it lists the kernels with their launches, errors and times.
@@ -179,6 +203,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from trajopt_tpu_torch import external_verify as ev
 from trajopt_tpu_torch import ifopt
 from trajopt_tpu_torch.collision import convex as cvx
 from trajopt_tpu_torch.collision import fused_convex as fc
@@ -194,6 +219,7 @@ from trajopt_tpu_torch.models.benchmarks import (ARM7_GOAL,
                                                  PR2ISH_HOME,
                                                  arm_table_batch,
                                                  arm_table_problem,
+                                                 flagship_params,
                                                  mesh_arm_problem,
                                                  pr2ish_goals,
                                                  pr2ish_restart_family,
@@ -359,16 +385,6 @@ def pose_error(tree, traj: torch.Tensor, step: int) -> torch.Tensor:
     i = tree.link_id("tool0")
     return torch.linalg.vector_norm(
         transform_error(R_t, p_t, R[:, i], p[:, i]), dim=-1)
-
-
-def flagship_params() -> SQPParams:
-    """The JAX flagship's ``__graft_entry__._solver_params("cast")``."""
-    return dataclasses.replace(
-        SQPParams(), max_restarts=1,
-        qp=ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
-                      check_every=150, adaptive_rho=False,
-                      rho_dual_scale=0.1, ruiz_iters=10, ns_refresh=True,
-                      ns_tol=1e-4, ns_power_iters=4))
 
 
 def discrete_params() -> SQPParams:
@@ -1788,6 +1804,7 @@ def phase_flagship(smi: str) -> tuple[int, int, int]:
                          "launched")
 
     def against_plain(res, stats):
+        keep("flagship", scene, res, 30, 8, MIN_VERIFIED)
         traj = res.x.reshape(B, 30, 8)
         conv = res.status == SQPStatus.CONVERGED
         mins = swept_verify(scene, traj)
@@ -1917,7 +1934,9 @@ def phase_arm7(smi: str) -> tuple[int, int, int]:
                          "the primitive kernel")
     launches = drive_path("arm7 dense", solve, scene, arm_table_batch, ARM_B,
                           ARM_STEPS, 7, fd.COUNTER, "admm_dense_", smi,
-                          ARM_MIN_VERIFIED)
+                          ARM_MIN_VERIFIED, after=lambda res, stats: keep(
+                              "arm7 dense", scene, res, ARM_STEPS, 7,
+                              ARM_MIN_VERIFIED))
     nlp = prob.build()
     plan = bb.make_plan(*nlp_mod.structured_band(nlp), *nlp.block)
     shape = (plan.T, plan.D, plan.K, plan.R)
@@ -1940,11 +1959,19 @@ def phase_hard_mix(smi: str) -> int:
     lanes on borderline goals."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
     cb, passes = pass_timer()
+
+    def lanes(res, stats):
+        status = res.status.cpu().tolist()
+        print("hard mix: lanes not converged (lane: status): " + (", ".join(
+            f"{k}: {SQPStatus.NAMES[v]}" for k, v in enumerate(status)
+            if v != SQPStatus.CONVERGED) or "none"))
+        keep("hard mix", scene, res, 30, 8, MIN_VERIFIED)
+
     return drive_path("hard mix", prob.make_solve(flagship_params(),
                                                   structured=True),
                       scene, hard_batch, B, 30, 8, fb.COUNTER,
                       "admm_block_chunk_kernel", smi, MIN_VERIFIED,
-                      n_hard=int(np.ceil(HARD_FRAC * B)),
+                      n_hard=int(np.ceil(HARD_FRAC * B)), after=lanes,
                       timed_solve=(prob.make_solve(
                           flagship_params(), callback=cb, structured=True),
                           passes))
@@ -2190,6 +2217,7 @@ def phase_unified(smi: str) -> tuple[int, int]:
     _, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
 
     def against_primitive(res, stats):
+        keep("unified flagship", uscene, res, 30, 8, MIN_VERIFIED)
         traj = res.x.reshape(B, 30, 8)
         fr = torch.linspace(0.0, 1.0, 3, dtype=traj.dtype,
                             device=traj.device)
@@ -2351,10 +2379,11 @@ def collision_scene_solve(path: str, dev, mesh_dir: str):
     package's tests/test_arm6.py), ``"mesh"`` (the mesh arm, hulls from
     STL files through scene_from_urdf, 8 steps), ``"arm7 sdf"`` (10 steps
     against the baked SDF world), ``"simple"`` (simple_collision_problem,
-    1 step).  Returns (status, SQP iterations, QP solves, x) on the CPU."""
+    1 step).  Returns (status, SQP iterations, QP solves, x) on the CPU
+    and the scene (None but for the mesh arm)."""
     rng = np.random.default_rng(3)
     kw = dict(dtype=torch.float32, device=dev)
-    params = {}
+    params, scene = {}, None
     if path == "simple":
         prob, _ = simple_collision_problem(device=dev)
         x0 = torch.as_tensor([[-0.75, 0.75], [-0.7, 0.8], [0.6, -0.7]], **kw)
@@ -2375,7 +2404,7 @@ def collision_scene_solve(path: str, dev, mesh_dir: str):
             scale = 0.05
         elif path == "mesh":
             n, home, goal = 8, MESH_ARM_HOME, MESH_ARM_GOAL
-            prob, _ = mesh_arm_problem(mesh_dir, n, device=dev)
+            prob, scene = mesh_arm_problem(mesh_dir, n, device=dev)
             scale = 0.05
         else:
             n, home, goal = 10, ARM7_HOME, ARM7_GOAL
@@ -2389,7 +2418,7 @@ def collision_scene_solve(path: str, dev, mesh_dir: str):
     res = make_solver(prob.build(), discrete_params())(x0, *prob.bounds(x0),
                                                         params)
     return [t.cpu() for t in (res.status, res.n_iter, res.n_qp_solves,
-                              res.x)]
+                              res.x)] + [scene]
 
 
 @contextlib.contextmanager
@@ -2452,6 +2481,10 @@ def phase_collision_scenes() -> tuple[int, int]:
             if path == "mesh" and fc.COUNTER.launches == 0:
                 raise SystemExit("mesh solve did not launch the convex "
                                  "search kernel")
+            if path == "mesh":
+                lanes, n_steps = gpu[3].shape[0], gpu[3].shape[1] // 2
+                FINAL["mesh arm"] = (gpu[4], gpu[3].reshape(
+                    lanes, n_steps, 2).to(cuda), gpu[0].to(cuda), None)
             if not torch.equal(gpu[0], ref[0]):
                 raise SystemExit(f"{path} solve: statuses differ between "
                                  f"card and CPU")
@@ -2856,6 +2889,98 @@ def phase_captured(smi: str) -> None:
     captured_f64_references()
 
 
+# Phase 14: the independent check (``trajopt_tpu_torch/external_verify.py``)
+# of the final trajectories of every full-width path, kept by
+# :func:`keep`: label -> (scene, trajectories [B, T, n_dof] on the card,
+# statuses [B], the least number of lanes that must be certified free, or
+# None: every lane the swept check verifies, and the same verdict on every
+# lane).  The mesh arm's small solve takes None: its lanes step across the
+# post between the points its LVS-discrete term checks (in the JAX package
+# too), so both checks find them in collision.
+FINAL: dict = {}
+# A swept-verified sample may penetrate this deep (m) before the phase
+# calls it a blind spot: the arc slack of 0.05 rad sub-segments on links up
+# to about 1 m.  The swept check may exceed the exact sampled clearance by
+# as much.
+EXTERNAL_SLACK = 1e-3
+
+
+def keep(label: str, scene, res, n_steps: int, n_dof: int, limit: int):
+    """Keep a copy of a path's measured solve for phase 14."""
+    FINAL[label] = (scene, res.x.reshape(-1, n_steps, n_dof).clone(),
+                    res.status.clone(), limit)
+
+
+def external_check(label: str, scene, traj, status,
+                   limit: int | None) -> float:
+    """Certify one path's converged lanes (:func:`ev.certify`, on the card)
+    and hold the swept check (``swept_verify``, the hand kernels) against
+    them.  Fails on a blind spot (a swept-verified lane with a sample the
+    exact solver finds deeper than ``EXTERNAL_SLACK`` in collision), on
+    fewer than ``limit`` lanes certified free (None: fewer than the swept
+    check verifies, or another verdict on any lane), and when the swept check
+    exceeds a lane's exact sampled clearance by more than
+    ``EXTERNAL_SLACK``.  Returns the seconds it took."""
+    t0 = time.time()
+    conv = status == SQPStatus.CONVERGED
+    lanes = torch.nonzero(conv).flatten().tolist()
+    traj = traj[conv]
+    mins = swept_verify(scene, traj)
+    verdict = ev.certify(scene, traj,
+                         log=lambda m: print(f"{label}: external {m[2:]}"))
+    out = verdict.agreement(mins)
+    print(f"{label}: external check {json.dumps(out)}")
+    repo = mins.double().cpu().numpy()
+    deep = [(lanes[k], pair, d) for k, pair, d in verdict.exact
+            if repo[k] > 0 and d < -EXTERNAL_SLACK]
+    # The certificates are lower bounds, loose by up to centimetres, so
+    # diff_max above is positive; below the swept value each lane's values
+    # are made tight (Verdict.refine).
+    lows, n_local, n_exact, left = verdict.refine(repo)
+    exact_diff = repo - lows
+    print(f"{label}: swept check - tight sampled clearance in "
+          f"[{exact_diff.min():+.6f}, {exact_diff.max():+.6f}] m ("
+          f"{n_local} local direction searches, {n_exact} exact solves, "
+          f"{left} left); max exact penetration "
+          f"{verdict.max_exact_penetration:.6f} m; {time.time() - t0:.1f} s")
+    if deep:
+        lane, pair, d = min(deep, key=lambda e: e[2])
+        raise SystemExit(f"{label}: blind spot: lane {lane} is converged "
+                         f"and swept-verified, but the exact solver finds "
+                         f"pair {pair} {-d:.6f} m deep in collision "
+                         f"({len(deep)} such samples)")
+    if limit is None:
+        if out["agree"] < len(lanes):
+            raise SystemExit(f"{label}: the swept check and the external "
+                             f"check disagree on "
+                             f"{len(lanes) - out['agree']} lanes")
+        limit = int((repo > 0).sum())
+    if out["external_free"] < limit:
+        raise SystemExit(f"{label}: only {out['external_free']} of "
+                         f"{len(lanes)} converged lanes certified free "
+                         f"(< {limit})")
+    if not exact_diff.max() <= EXTERNAL_SLACK:
+        k = int(np.argmax(exact_diff))
+        raise SystemExit(f"{label}: the swept check over-estimates lane "
+                         f"{lanes[k]}'s clearance by {exact_diff[k]:.6f} m "
+                         f"(> {EXTERNAL_SLACK:g}, {left} samples left "
+                         f"uncertified)")
+    return time.time() - t0
+
+
+def phase_external(smi: str) -> None:
+    """Phase 14 (see the module doc): every kept path through
+    :func:`external_check`."""
+    missing = {"flagship", "arm7 dense", "hard mix", "unified flagship",
+               "mesh arm"} - set(FINAL)
+    if missing:
+        raise SystemExit(f"external check: no trajectories of {missing}")
+    took = {label: external_check(label, *FINAL[label]) for label in FINAL}
+    print("external check: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in took.items())
+          + f"; {sum(took.values()):.1f} s in all on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2895,6 +3020,7 @@ def main() -> int:
                                                  phase_collision_scenes)
     dense_k.update(timed("ifopt and host paths", phase_ifopt_host, smi))
     timed("captured against eager", phase_captured, smi)
+    timed("external check", phase_external, smi)
     dense_k["max_abs_err"] = max(dense_k["max_abs_err"],
                                  dense_k["json_max_abs_err"],
                                  dense_k["ifopt_max_abs_err"])

@@ -7,8 +7,11 @@ from one machine and one power limit.
 
 Each run is a process of its own in that tree's root: it imports that
 tree's ``chip_smoke.py`` and calls ``phase_device``, ``phase_build`` and
-then ``phase_<name>(smi)`` for each name given (default: flagship,
-hard_mix, arm7, unified).  Every run's output is printed between
+then ``phase_<name>(smi)`` (``phase_<name>()`` for a phase that takes no
+argument, as ``collision_scenes``) for each name given (default:
+flagship, hard_mix, arm7, unified).  Phase 14 reads the trajectories the
+phases before it kept: ``flagship arm7 hard_mix unified collision_scenes
+external`` runs it.  Every run's output is printed between
 ``=== <side> <tree>`` and ``=== <side> rc=<code>`` lines; the script exits
 non-zero when a run fails.
 
@@ -136,7 +139,8 @@ for name in names:
     if name == "kernels":
         out = kernels(save)
     else:
-        out = getattr(cs, "phase_" + name)(smi)
+        fn = getattr(cs, "phase_" + name)
+        out = fn(smi) if fn.__code__.co_argcount else fn()
     print(f"{name} result: {out} ({time.time() - t1:.1f} s)", flush=True)
 print(f"tree {os.getcwd()}: {time.time() - t0:.1f} s", flush=True)
 """
@@ -202,6 +206,8 @@ SUMMARY = [
      r"solve.*?, ([\d.]+) ms device time", "{}: primitive kernel ms"),
     (r"^(.+?): convex narrowphase \(collision\.convex\): ([\d.]+) ms",
      "{}: collision.convex range ms"),
+    (r"^(.+?): swept check - tight sampled clearance .*; ([\d.]+) s$",
+     "{}: external check s"),
 ]
 
 

@@ -4,13 +4,16 @@ the arm7 table workload and the spherebot simple-collision problem.
 Counterpart of ``trajopt_tpu/models/benchmarks.py`` (``pr2ish_table_problem``
 with ``unify_narrowphase``, ``pr2ish_table_batch`` with its hard mix,
 ``pr2ish_restart_family``, ``arm_table_problem``, ``arm_table_batch`` and
-``simple_collision_problem``), plus :func:`swept_verify`,
+``simple_collision_problem``), plus :func:`flagship_params`, the
+flagship's solver settings, and :func:`swept_verify`,
 the independent post-solve swept-clearance check of the repository's
 ``bench.py``.  Goals come from a numpy seed (the JAX builders draw them
 with ``jax.random``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,6 +25,8 @@ from trajopt_tpu_torch.models.robots import (arm7, arm7_scene, boxbot,
                                              pr2ish_scene)
 from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
                                                   interpolated_init)
+from trajopt_tpu_torch.qp.admm import ADMMConfig
+from trajopt_tpu_torch.sqp.params import SQPParams
 from trajopt_tpu_torch.terms.collision import collision_term
 from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
 
@@ -103,6 +108,19 @@ PR2ISH_RESTART_VIAS = np.array([
     PR2ISH_GOAL,
     [0.30, -0.3, -0.4, -0.5, -0.9, 0.0, -1.0, 0.0],
 ])
+
+
+def flagship_params() -> SQPParams:
+    """The flagship's solver settings, the JAX package's
+    ``__graft_entry__._solver_params("cast")``: one restart, fixed rho,
+    eps 2e-5, 450 ADMM iterations in chunks of 150, Ruiz 10, the
+    Newton-Schulz refresh."""
+    return dataclasses.replace(
+        SQPParams(), max_restarts=1,
+        qp=ADMMConfig(eps_abs=2e-5, eps_rel=2e-5, max_iter=450,
+                      check_every=150, adaptive_rho=False,
+                      rho_dual_scale=0.1, ruiz_iters=10, ns_refresh=True,
+                      ns_tol=1e-4, ns_power_iters=4))
 
 
 def pr2ish_table_problem(n_steps: int = 30, *, evaluator: str = "cast",
