@@ -71,8 +71,7 @@ Phases, each of which must pass:
    problem and settings on B = 256 lanes of which the first 64 have
    borderline detour goals (``hard_frac=0.25``), through the same checks
    as phase 6, with the status and iteration histograms, the counts of
-   the hard lanes, the largest merit coefficient and the host time of
-   each SQP pass against the lanes still live;
+   the hard lanes and the largest merit coefficient;
 9. the hard mix again with ``max_restarts=2`` and the multi-start family
    ``pr2ish_restart_family(goals, 30, rows=1)`` as
    ``params["restart_inits"]``: counts, re-seeded lanes and the block
@@ -133,8 +132,8 @@ Phases, each of which must pass:
    each solved on one seeded batch under ``utils.aot_cache.eager()`` and
    with the solver's regions captured as CUDA graphs, through the checks
    of phase 6 (wall time, verified solves/s, statuses, the chunk kernel's
-   launches, captures and replays, the host time of each SQP pass, a
-   profiled repeat's idle share and layer split); statuses may differ on
+   launches, captures and replays, a profiled repeat's idle share and
+   layer split); statuses may differ on
    at most 1 % of the flagship and arm7 lanes and converged lanes' x by
    1e-3 (the hard mix is held to its verified limit); then phase 5's small
    references captured in float64 against the CPU, to 1e-9.
@@ -258,7 +257,7 @@ from trajopt_tpu_torch.sqp.solver import (banded_qp, block_qp, build_qp,
                                           num_qp_rows)
 from trajopt_tpu_torch.terms.collision import collision_term
 from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
-from trajopt_tpu_torch.utils import aot_cache
+from trajopt_tpu_torch.utils import aot_cache, profiling
 from trajopt_tpu_torch.utils.checkpoint import load_result, save_result
 from trajopt_tpu_torch.utils.debug import dump_failed_qps
 from trajopt_tpu_torch.utils.profiling import Timer, trace
@@ -274,6 +273,13 @@ PEAK_HBM_BYTES = 3.35e12
 # maximum SM clock read from the card.  Used only for the printed design
 # floors of phases 3 and 4.
 SMEM_BYTES_PER_CLK = 32 * 4
+# The kernel wrappers' launch counters (``utils/profiling.py``'s registry;
+# a replay of a captured region counts its launches again).
+BLOCK_LAUNCHES = "qp.block_chunk.launches"
+DENSE_LAUNCHES = "qp.dense_chunk.launches"
+CONVEX_LAUNCHES = "collision.convex.launches"
+PRIMITIVE_LAUNCHES = "collision.primitive.launches"
+PRIMITIVE_KERNELS = "collision.primitive.kernels"
 
 T, D, K, R, B, N_ITERS = 30, 8, 2, 40, 256, 150
 # Kernel vs plain version, both float32 on the same inputs: they sum in
@@ -783,10 +789,10 @@ def phase_dense_kernel_check(dev) -> dict:
     # 100 iterations), within SMALL_XTOL of the magnitude.
     acfg = dataclasses.replace(cfg, adaptive_rho=True, eps_abs=0.0,
                                eps_rel=0.0)
-    fd.COUNTER.reset()
+    profiling.reset()
     res = dense.solve_qp(qp, x0, cfg=acfg)
     torch.cuda.synchronize()
-    launches = fd.COUNTER.launches
+    launches = _count(DENSE_LAUNCHES)
     ref = dense.solve_qp(dense.QPData(*(t.double().cpu() for t in qp)),
                          x0.double().cpu(), cfg=acfg)
     dx = float((res.x.double().cpu() - ref.x).abs().max())
@@ -1217,9 +1223,9 @@ def phase_small_reference():
     versions, which the CPU tests hold against the JAX package: one pr2ish
     QP step against float64, and a whole solve of each path against
     float32."""
-    fb.COUNTER.reset()
+    profiling.reset()
     gpu = small_qp_step(torch.device("cuda")).double().cpu()
-    if fb.COUNTER.launches == 0:
+    if _count(BLOCK_LAUNCHES) == 0:
         raise SystemExit("the card's QP step did not launch the kernel")
     cpu = small_qp_step(torch.device("cpu"))
     dx = float((gpu - cpu).abs().max())
@@ -1236,9 +1242,9 @@ def phase_small_reference():
     # kernel).
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     eps = discrete_params().qp.eps_abs
-    fp.COUNTER.reset()
+    profiling.reset()
     qp, x0 = arm7_first_qp(ARM_STEPS, ARM_B, 0, cuda)
-    if fp.COUNTER.launches == 0:
+    if _count(PRIMITIVE_LAUNCHES) == 0:
         raise SystemExit("the arm7 first QP was built without the "
                          "primitive kernel")
     t0 = time.time()
@@ -1274,16 +1280,15 @@ def phase_small_reference():
     # :func:`hold_in_cpu_range` says over SMALL_PERTURBATIONS changes of
     # the inits: the hard solve's lane 0 takes 4 or 5 SQP iterations on
     # the CPU itself under such changes.
-    for path, counter in (("pr2ish", fb.COUNTER), ("hard", fb.COUNTER),
-                          ("hard rescale", fb.COUNTER), ("arm7", fd.COUNTER),
-                          ("arm7 ipm", None)):
-        if counter is not None:
-            counter.reset()
-        fp.COUNTER.reset()
+    for path, counter in (("pr2ish", BLOCK_LAUNCHES),
+                          ("hard", BLOCK_LAUNCHES),
+                          ("hard rescale", BLOCK_LAUNCHES),
+                          ("arm7", DENSE_LAUNCHES), ("arm7 ipm", None)):
+        profiling.reset()
         gpu = small_solve(path, cuda)
-        if counter is not None and counter.launches == 0:
+        if counter is not None and _count(counter) == 0:
             raise SystemExit(f"small {path} solve did not launch its kernel")
-        if fp.COUNTER.launches == 0:
+        if _count(PRIMITIVE_LAUNCHES) == 0:
             raise SystemExit(f"small {path} solve did not launch the "
                              f"primitive kernel")
         runs = [small_solve(path, cpu)] + [
@@ -1398,15 +1403,15 @@ def hold_json_references():
                 and dx64 <= 1e-6):
             raise SystemExit(f"small {path} float64: card and CPU differ")
 
-        fd.COUNTER.reset()
+        profiling.reset()
         gpu = small_json_solve(path, cuda)
-        if fd.COUNTER.launches == 0:
+        if _count(DENSE_LAUNCHES) == 0:
             raise SystemExit(f"small {path} solve did not launch the "
                              f"dense kernel")
         runs = [small_json_solve(path, cpu)] + [
             small_json_solve(path, cpu, perturb=k) for k in range(3)]
         hold_in_cpu_range(f"small {path}", gpu, runs,
-                          f"; {fd.COUNTER.launches} dense kernel launches")
+                          f"; {_count(DENSE_LAUNCHES)} dense kernel launches")
 
 
 # The solver's profiler ranges (torch.profiler.record_function), one per
@@ -1442,7 +1447,7 @@ class Trace:
         for e in prof.profiler.kineto_results.events():
             name = e.name()
             if e.device_type() == cuda:
-                if name not in self.ranges:
+                if not name.startswith(("sqp.", "qp.", "collision.")):
                     self.spans.append((name, e.start_ns(), e.end_ns(),
                                        e.linked_correlation_id()))
                     own.append(e.correlation_id())
@@ -1535,30 +1540,9 @@ class Trace:
                          for name, (n, t) in rows)
 
 
-def pass_timer():
-    """(callback, passes): a solver callback that records the host clock
-    and the number of live lanes at the top of every SQP pass (no device
-    sync: it reads shapes only), and that list of (seconds, lanes)."""
-    passes = []
-
-    def cb(total_iter, x, *_):
-        passes.append((time.perf_counter(), x.shape[0]))
-
-    return cb, passes
-
-
-def print_passes(label: str, passes, end: float) -> None:
-    """Host seconds of each SQP pass beside its live lanes."""
-    ends = [t for t, _ in passes[1:]] + [end]
-    rows = [(n, e - t) for (t, n), e in zip(passes, ends)]
-    print(f"{label}: {len(rows)} SQP passes, (live lanes, ms) per pass: "
-          + " ".join(f"({n}, {1e3 * dt:.1f})" for n, dt in rows))
-    few = [dt for n, dt in rows if n <= 16]
-    many = [dt for n, dt in rows if n > 16]
-    if few and many:
-        print(f"{label}: mean ms per pass with > 16 live lanes "
-              f"{1e3 * np.mean(many):.1f} ({len(many)} passes), with <= 16 "
-              f"{1e3 * np.mean(few):.1f} ({len(few)} passes)")
+def _count(name: str):
+    """The registry's counter ``name`` (0 before its first count)."""
+    return profiling.counters().get(name, 0)
 
 
 def print_outcome(label: str, res, verified, n_hard: int) -> None:
@@ -1586,7 +1570,7 @@ def print_outcome(label: str, res, verified, n_hard: int) -> None:
 def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
                n_dof: int, counter, kernel: str, smi: str,
                min_verified: int | None, profile: bool = True,
-               n_hard: int = 0, timed_solve=None, after=None,
+               n_hard: int = 0, after=None,
                traced: dict | None = None) -> int:
     """A warm-up solve of the measured batch (so that it meets every lane
     bucket the measured solve captures; the captures it makes are
@@ -1597,10 +1581,7 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
     profiled repeat for the device's idle share, the layer split, its top
     kernels and the in-path time of the chunk kernel ``kernel``.  With ``n_hard`` the
     status and iteration histograms and the first ``n_hard`` lanes'
-    counts; with ``timed_solve`` (the same solve made with a
-    ``pass_timer`` callback, and its list) a warm-up of it (its own
-    captures) and a repeat that prints the host time of each SQP pass;
-    with ``after`` a call ``after(res, stats)`` on
+    counts; with ``after`` a call ``after(res, stats)`` on
     the measured solve's result and its (captures, capture seconds,
     replays) before the repeats; with ``traced`` a dict that takes the
     profiled repeat's narrowphase kernel launches (:func:`profile_solve`).
@@ -1616,13 +1597,12 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counter.reset()
-    aot_cache.STATS.reset()
+    profiling.reset()
     t0 = time.time()
     res = solve(inits, {"goal": goals})
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = counter.launches
+    launches = _count(counter)
     stats = (aot_cache.STATS.captures, aot_cache.STATS.capture_s,
              aot_cache.STATS.replays)
 
@@ -1657,16 +1637,6 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
                          f"verified (< {min_verified})")
     if after is not None:
         after(res, stats)
-    if timed_solve is not None:
-        tsolve, passes = timed_solve
-        tsolve(inits, {"goal": goals})      # its own captures
-        passes.clear()
-        t0 = time.time()
-        tsolve(inits, {"goal": goals})
-        torch.cuda.synchronize()
-        end = time.perf_counter()
-        print(f"{label}: pass-timed repeat {time.time() - t0:.3f} s")
-        print_passes(label, passes, end)
     if profile:
         got = profile_solve(label, lambda: solve(inits, {"goal": goals}),
                             kernel, launches)
@@ -1790,12 +1760,11 @@ def phase_flagship(smi: str) -> tuple[int, int, int]:
     solve = prob.make_solve(flagship_params(), structured=True)
     inits, goals = pr2ish_table_batch(1, B, 30)
     torch.cuda.synchronize()
-    fp.COUNTER.reset()
-    aot_cache.STATS.reset()
+    profiling.reset()
     t0 = time.time()
     solve(inits, {"goal": goals})
     torch.cuda.synchronize()
-    prim, calls = fp.COUNTER.kernels, fp.COUNTER.launches
+    prim, calls = _count(PRIMITIVE_KERNELS), _count(PRIMITIVE_LAUNCHES)
     print(f"flagship: first solve {time.time() - t0:.2f} s "
           f"({aot_cache.STATS}); {fp.KERNEL} launched {prim} times by "
           f"{calls} query calls")
@@ -1890,7 +1859,7 @@ def phase_flagship(smi: str) -> tuple[int, int, int]:
 
     traced = {}
     block = drive_path("flagship", solve, scene, pr2ish_table_batch, B, 30,
-                       8, fb.COUNTER, "admm_block_chunk_kernel", smi,
+                       8, BLOCK_LAUNCHES, "admm_block_chunk_kernel", smi,
                        MIN_VERIFIED, after=against_plain, traced=traced)
     if traced and traced[fp.KERNEL][0] <= 0:
         raise SystemExit("flagship: no primitive kernel launch traced in "
@@ -1920,12 +1889,11 @@ def phase_arm7(smi: str) -> tuple[int, int, int]:
     solve = prob.make_solve(discrete_params())
     inits, goals = arm_table_batch(1, ARM_B, ARM_STEPS)
     torch.cuda.synchronize()
-    fp.COUNTER.reset()
-    aot_cache.STATS.reset()
+    profiling.reset()
     t0 = time.time()
     solve(inits, {"goal": goals})
     torch.cuda.synchronize()
-    prim, calls = fp.COUNTER.kernels, fp.COUNTER.launches
+    prim, calls = _count(PRIMITIVE_KERNELS), _count(PRIMITIVE_LAUNCHES)
     print(f"arm7 dense: first solve {time.time() - t0:.2f} s "
           f"({aot_cache.STATS}); {fp.KERNEL} launched {prim} times by "
           f"{calls} query calls of the discrete entries")
@@ -1933,7 +1901,7 @@ def phase_arm7(smi: str) -> tuple[int, int, int]:
         raise SystemExit("arm7 dense: the discrete entries never launched "
                          "the primitive kernel")
     launches = drive_path("arm7 dense", solve, scene, arm_table_batch, ARM_B,
-                          ARM_STEPS, 7, fd.COUNTER, "admm_dense_", smi,
+                          ARM_STEPS, 7, DENSE_LAUNCHES, "admm_dense_", smi,
                           ARM_MIN_VERIFIED, after=lambda res, stats: keep(
                               "arm7 dense", scene, res, ARM_STEPS, 7,
                               ARM_MIN_VERIFIED))
@@ -1945,7 +1913,7 @@ def phase_arm7(smi: str) -> tuple[int, int, int]:
           f"clusters of {cs} ({smem} B of shared memory per block)")
     drive_path("arm7 block", prob.make_solve(discrete_params(),
                                              structured=True),
-               scene, arm_table_batch, ARM_B, ARM_STEPS, 7, fb.COUNTER,
+               scene, arm_table_batch, ARM_B, ARM_STEPS, 7, BLOCK_LAUNCHES,
                "admm_block_chunk_kernel", smi, None, profile=False)
     return launches, prim, calls
 
@@ -1958,7 +1926,6 @@ def phase_hard_mix(smi: str) -> int:
     """bench.py's hard-mix line at full size: the flagship with 64 of 256
     lanes on borderline goals."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
-    cb, passes = pass_timer()
 
     def lanes(res, stats):
         status = res.status.cpu().tolist()
@@ -1969,12 +1936,9 @@ def phase_hard_mix(smi: str) -> int:
 
     return drive_path("hard mix", prob.make_solve(flagship_params(),
                                                   structured=True),
-                      scene, hard_batch, B, 30, 8, fb.COUNTER,
+                      scene, hard_batch, B, 30, 8, BLOCK_LAUNCHES,
                       "admm_block_chunk_kernel", smi, MIN_VERIFIED,
-                      n_hard=int(np.ceil(HARD_FRAC * B)), after=lanes,
-                      timed_solve=(prob.make_solve(
-                          flagship_params(), callback=cb, structured=True),
-                          passes))
+                      n_hard=int(np.ceil(HARD_FRAC * B)), after=lanes)
 
 
 def phase_family(smi: str) -> int:
@@ -1988,12 +1952,12 @@ def phase_family(smi: str) -> int:
     inits, goals = hard_batch(1, B, 30)
     family = pr2ish_restart_family(goals, 30, rows=1)
     torch.cuda.synchronize()
-    fb.COUNTER.reset()
+    profiling.reset()
     t0 = time.time()
     res = solve(inits, {"goal": goals, "restart_inits": family})
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = fb.COUNTER.launches
+    launches = _count(BLOCK_LAUNCHES)
     if tuple(res.x.shape) != (B, 240) or not bool(torch.isfinite(res.x).all()):
         raise SystemExit("family: trajectories not finite or of the wrong "
                          "shape")
@@ -2074,7 +2038,7 @@ def phase_json(smi: str) -> dict:
     jp = load_problem_file(str(ARM_TABLE_JSON), env)
     with tempfile.TemporaryDirectory() as tmp:
         jp.log_results, jp.log_dir = True, tmp
-        fd.COUNTER.reset()
+        profiling.reset()
         t0 = time.time()
         res = jp.solve()
         torch.cuda.synchronize()
@@ -2088,10 +2052,10 @@ def phase_json(smi: str) -> dict:
           f"iterations {int(res.n_iter[0])}, qp solves "
           f"{int(res.n_qp_solves[0])}; independent collision check: "
           f"free={ok} min_clearance={dmin:.4f}; {wall:.2f} s, "
-          f"{fd.COUNTER.launches} dense kernel launches; logs: solver "
+          f"{_count(DENSE_LAUNCHES)} dense kernel launches; logs: solver "
           f"{len(logs['trajopt_solver.log'])} lines, vars "
           f"{len(logs['trajopt_vars.log'])} lines")
-    if status != SQPStatus.CONVERGED or not ok or fd.COUNTER.launches == 0:
+    if status != SQPStatus.CONVERGED or not ok or _count(DENSE_LAUNCHES) == 0:
         raise SystemExit("json arm_table.json: not converged, not free or "
                          "no kernel launch")
     if len(logs["trajopt_solver.log"]) != int(res.n_iter[0]) + 1 or \
@@ -2116,12 +2080,12 @@ def phase_json(smi: str) -> dict:
     inits, _ = arm_table_batch(1, REACH_B, REACH_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fd.COUNTER.reset()
+    profiling.reset()
     t0 = time.time()
     res = solve(inits)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = fd.COUNTER.launches
+    launches = _count(DENSE_LAUNCHES)
     if tuple(res.x.shape) != (REACH_B, n) or \
             not bool(torch.isfinite(res.x).all()):
         raise SystemExit("json reach: trajectories not finite or of the "
@@ -2167,7 +2131,7 @@ def phase_json(smi: str) -> dict:
     step = make_mpc_step(prob, discrete_params(), reinit_goal_key="goal")
     traj, goals = arm_table_batch(2, REACH_B, ARM_STEPS)
     for cycle in range(3):
-        fd.COUNTER.reset()
+        profiling.reset()
         t0 = time.time()
         traj, res = step(traj, {"goal": goals + 0.01 * cycle})
         torch.cuda.synchronize()
@@ -2175,7 +2139,7 @@ def phase_json(smi: str) -> dict:
         print(f"mpc cycle {cycle}: converged {n_conv}/{REACH_B}, "
               f"{time.time() - t0:.2f} s, mean SQP iterations "
               f"{float(res.n_iter.float().mean()):.2f}, "
-              f"{fd.COUNTER.launches} dense kernel launches")
+              f"{_count(DENSE_LAUNCHES)} dense kernel launches")
         if not bool(torch.isfinite(traj).all()) or \
                 tuple(traj.shape) != (REACH_B, ARM_STEPS, 7):
             raise SystemExit(f"mpc cycle {cycle}: trajectories not finite "
@@ -2244,20 +2208,19 @@ def phase_unified(smi: str) -> tuple[int, int]:
     solve = prob.make_solve(flagship_params(), structured=True)
     inits, goals = pr2ish_table_batch(1, B, 30)
     torch.cuda.synchronize()
-    fc.COUNTER.reset()
-    aot_cache.STATS.reset()
+    profiling.reset()
     t0 = time.time()
     solve(inits, {"goal": goals})
     torch.cuda.synchronize()
-    convex = fc.COUNTER.launches
+    convex = _count(CONVEX_LAUNCHES)
     print(f"unified flagship: first solve {time.time() - t0:.2f} s "
           f"({aot_cache.STATS}); {fc.KERNEL} launched {convex} times")
     if convex <= 0:
         raise SystemExit("unified flagship: the convex search kernel never "
                          "launched")
     block = drive_path("unified flagship", solve, scene, pr2ish_table_batch,
-                       B, 30, 8, fb.COUNTER, "admm_block_chunk_kernel", smi,
-                       MIN_VERIFIED, after=against_primitive)
+                       B, 30, 8, BLOCK_LAUNCHES, "admm_block_chunk_kernel",
+                       smi, MIN_VERIFIED, after=against_primitive)
     # A replay records no host range inside its graph, so the narrowphase's
     # share of device time is read from an eager profile (the same device
     # work as the captured solve's).
@@ -2305,9 +2268,9 @@ def phase_unified_f64() -> None:
     names = ("d", "J", "swept d", "swept J0", "swept J1")
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     ref = narrowphase_f64(cpu, torch.float64)
-    fc.COUNTER.reset()
+    profiling.reset()
     got = narrowphase_f64(cuda, torch.float64)
-    launches = fc.COUNTER.launches
+    launches = _count(CONVEX_LAUNCHES)
     with plain_search():
         plain = narrowphase_f64(cuda, torch.float64)
     kp = [float((g - p).abs().max()) for g, p in zip(got, plain)]
@@ -2455,8 +2418,7 @@ def phase_collision_scenes() -> tuple[int, int]:
     with tempfile.TemporaryDirectory() as tmp:
         write_mesh_arm(tmp)
         for path in ("arm6", "mesh", "arm7 sdf", "simple"):
-            fd.COUNTER.reset()
-            fc.COUNTER.reset()
+            profiling.reset()
             t0 = time.time()
             with gjk_census({}) as steps:
                 gpu = collision_scene_solve(path, cuda, tmp)
@@ -2464,21 +2426,21 @@ def phase_collision_scenes() -> tuple[int, int]:
             for (A, Bv), st in sorted(steps.items()):
                 print_gjk_steps(f"collision scene solve ({path}), search "
                                 f"calls of A {A}, B {Bv}", st)
-            launches += fd.COUNTER.launches
-            convex += fc.COUNTER.launches
+            launches += _count(DENSE_LAUNCHES)
+            convex += _count(CONVEX_LAUNCHES)
             ref = collision_scene_solve(path, cpu, tmp)
             names = ("status", "SQP iterations", "QP solves")
             print(f"collision scene solve ({path}, 3 lanes, float32): card "
-                  f"{t_card:.2f} s, {fd.COUNTER.launches} dense kernel "
-                  f"launches, {fc.COUNTER.launches} convex search kernel "
+                  f"{t_card:.2f} s, {_count(DENSE_LAUNCHES)} dense kernel "
+                  f"launches, {_count(CONVEX_LAUNCHES)} convex search kernel "
                   f"launches; card vs CPU " + ", ".join(
                       f"{n} {g.tolist()} vs {c.tolist()}"
                       for n, g, c in zip(names, gpu, ref))
                   + f"; max |dx| {float((gpu[3] - ref[3]).abs().max()):.3e}")
-            if fd.COUNTER.launches == 0:
+            if _count(DENSE_LAUNCHES) == 0:
                 raise SystemExit(f"{path} solve did not launch the dense "
                                  f"kernel")
-            if path == "mesh" and fc.COUNTER.launches == 0:
+            if path == "mesh" and _count(CONVEX_LAUNCHES) == 0:
                 raise SystemExit("mesh solve did not launch the convex "
                                  "search kernel")
             if path == "mesh":
@@ -2589,7 +2551,7 @@ def ifopt_paths(smi: str, sqp: SQPParams) -> tuple[dict, object, object]:
           f"{n}, m {m}, dense kernel in clusters of {cs} ({smem} B of "
           f"shared memory per block)")
 
-    fd.COUNTER.reset()
+    profiling.reset()
     t0 = time.time()
     single, values = prob.solve(sqp, device=dev)
     torch.cuda.synchronize()
@@ -2600,7 +2562,7 @@ def ifopt_paths(smi: str, sqp: SQPParams) -> tuple[dict, object, object]:
         goal, 1, IFOPT_STEPS)
     print(f"ifopt single: status {SQPStatus.NAMES[int(single.status)]}, "
           f"{int(single.n_iter)} SQP iterations, {int(single.n_qp_solves)} "
-          f"QP solves, {wall:.2f} s, {fd.COUNTER.launches} dense kernel "
+          f"QP solves, {wall:.2f} s, {_count(DENSE_LAUNCHES)} dense kernel "
           f"launches; values by set: "
           f"{ {k: v.shape for k, v in values.items()} }")
     if n_ver != 1:
@@ -2613,12 +2575,12 @@ def ifopt_paths(smi: str, sqp: SQPParams) -> tuple[dict, object, object]:
     solver = make_solver(nlp, sqp)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fd.COUNTER.reset()
+    profiling.reset()
     t0 = time.time()
     res = solver(x0, lo, hi, {})
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = fd.COUNTER.launches
+    launches = _count(DENSE_LAUNCHES)
     n_conv, n_ver = ifopt_outcome("ifopt batch", scene, res, goal, IFOPT_B,
                                   IFOPT_STEPS)
     print(f"ifopt batch: {wall:.3f} s for {IFOPT_B} lanes -> "
@@ -2847,25 +2809,24 @@ def compare_runs(label: str, eager, captured, B: int, hold: bool,
 def phase_captured(smi: str) -> None:
     """Phase 13: the flagship, the hard mix and arm7 dense, each solved on
     one seeded batch under ``aot_cache.eager()`` and captured (wall time,
-    verified solves/s, statuses, launches, capture counts, host ms a pass,
-    idle share and layer split), held against each other; then phase 5's
+    verified solves/s, statuses, launches, capture counts, idle share and
+    layer split), held against each other; then phase 5's
     small references captured in float64 against the CPU."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
     arm, arm_scene = arm_table_problem(n_steps=ARM_STEPS)
     paths = (
         ("flagship", prob, scene, flagship_params(), True, pr2ish_table_batch,
-         B, 30, 8, fb.COUNTER, "admm_block_chunk_kernel", 0, True),
+         B, 30, 8, BLOCK_LAUNCHES, "admm_block_chunk_kernel", 0, True),
         ("hard mix", prob, scene, flagship_params(), True, hard_batch, B, 30,
-         8, fb.COUNTER, "admm_block_chunk_kernel",
+         8, BLOCK_LAUNCHES, "admm_block_chunk_kernel",
          int(np.ceil(HARD_FRAC * B)), False),
         ("arm7 dense", arm, arm_scene, discrete_params(), False,
-         arm_table_batch, ARM_B, ARM_STEPS, 7, fd.COUNTER, "admm_dense_", 0,
-         True))
+         arm_table_batch, ARM_B, ARM_STEPS, 7, DENSE_LAUNCHES, "admm_dense_",
+         0, True))
     for (label, pb, sc, params, structured, batch, nb, steps, dof, counter,
          kernel, n_hard, hold) in paths:
         runs = {}
         for mode in ("eager", "captured"):
-            cb, passes = pass_timer()
             out = []
             with (aot_cache.eager() if mode == "eager"
                   else contextlib.nullcontext()):
@@ -2874,9 +2835,6 @@ def phase_captured(smi: str) -> None:
                            sc, batch, nb, steps, dof, counter, kernel, smi,
                            MIN_VERIFIED if nb == B else ARM_MIN_VERIFIED,
                            n_hard=n_hard,
-                           timed_solve=(pb.make_solve(
-                               params, callback=cb, structured=structured),
-                               passes),
                            after=lambda res, stats: out.append((res, stats)))
             res, (captures, _, replays) = out[0]
             if mode == "eager" and replays:

@@ -25,6 +25,7 @@ from trajopt_tpu_torch.collision import fused_convex as tfc
 from trajopt_tpu_torch.collision import fused_primitive as tfp
 from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
                                                  arm_table_problem,
+                                                 flagship_params,
                                                  pr2ish_table_batch,
                                                  pr2ish_table_problem)
 from trajopt_tpu_torch.qp import block_banded as bb
@@ -33,7 +34,13 @@ from trajopt_tpu_torch.qp import fused_dense as fd
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse
 from trajopt_tpu_torch.qp.admm import ADMMConfig
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
-from trajopt_tpu_torch.utils import aot_cache
+from trajopt_tpu_torch.utils import aot_cache, profiling
+
+
+def _count(name):
+    """The registry's counter ``name`` (0 before its first count)."""
+    return profiling.counters().get(name, 0)
+
 
 pytestmark = pytest.mark.cuda
 
@@ -105,9 +112,9 @@ def test_kernel_matches_plain_version(cuda, shape):
     assert fb.cluster_plan(*SHAPES[shape][:4])[0] == CLUSTER[shape]
     KW = _kw(SHAPES[shape][1])
     args[3][4, 2] = float("nan")                 # a blown-up lane
-    before = fb.COUNTER.launches
+    before = _count("qp.block_chunk.launches")
     got = fb.chunk_cuda(*args, **KW)
-    assert fb.COUNTER.launches == before + 1
+    assert _count("qp.block_chunk.launches") == before + 1
     ref = fb.chunk_plain(*[a.double() for a in args], **KW)
     plain = fb.chunk_plain(*args, **KW)
     for g, r, p in zip((*got[0], *got[1]), (*ref[0], *ref[1]),
@@ -162,10 +169,10 @@ def test_shape_no_cluster_takes_raises_before_launch(cuda):
         + [(1, m)] * 4 + [(1, n)] * 3 + [(1, m)] + [(1, n)] * 2 + [(1,)] \
         + [(1, n), (1, m), (1, n), (1, m), (1, n)]
     args = [torch.ones(s, device=cuda) for s in sizes]
-    before = fb.COUNTER.launches
+    before = _count("qp.block_chunk.launches")
     with pytest.raises(ValueError, match="no cluster"):
         fb.chunk_cuda(*args, **_kw(D))
-    assert fb.COUNTER.launches == before
+    assert _count("qp.block_chunk.launches") == before
 
 
 def test_small_solve_on_the_card(cuda):
@@ -178,9 +185,9 @@ def test_small_solve_on_the_card(cuda):
                             structured=True)
     inits, goals = pr2ish_table_batch(0, 4, 6)
     assert inits.device.type == "cuda" and inits.dtype == torch.float32
-    before = fb.COUNTER.launches
+    before = _count("qp.block_chunk.launches")
     res = solve(inits, {"goal": goals})
-    assert fb.COUNTER.launches > before
+    assert _count("qp.block_chunk.launches") > before
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()
 
@@ -233,9 +240,9 @@ def test_dense_kernel_matches_plain_version(cuda, shape):
     assert fd.cluster_plan(*DENSE[shape][1:])[0] == DENSE_CLUSTER[shape]
     args = _dense_inputs(cuda, shape=shape)
     args[2][3, 4] = float("nan")                 # a blown-up lane
-    before = fd.COUNTER.launches
+    before = _count("qp.dense_chunk.launches")
     got = fd.chunk_cuda(*args, **DKW)
-    assert fd.COUNTER.launches == before + 1
+    assert _count("qp.dense_chunk.launches") == before + 1
     ref = fd.chunk_plain(*[a.double() for a in args], **DKW)
     plain = fd.chunk_plain(*args, **DKW)
     for g, r, p in zip(got, ref, plain):
@@ -292,9 +299,9 @@ def test_small_dense_solve_on_the_card(cuda):
     solve = prob.make_solve(SQPParams(max_restarts=1, qp=qp))
     inits, goals = arm_table_batch(1, 4, 6)
     assert inits.device.type == "cuda" and inits.dtype == torch.float32
-    before = fd.COUNTER.launches
+    before = _count("qp.dense_chunk.launches")
     res = solve(inits, {"goal": goals})
-    assert fd.COUNTER.launches > before
+    assert _count("qp.dense_chunk.launches") > before
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()
 
@@ -309,9 +316,11 @@ def test_swept_solve_on_the_dense_path(cuda):
                     check_every=150, adaptive_rho=False, rho_dual_scale=0.1)
     solve = prob.make_solve(SQPParams(max_restarts=1, qp=qp))
     inits, goals = pr2ish_table_batch(0, 4, 6)
-    dense, prim = fd.COUNTER.launches, tfp.COUNTER.launches
+    dense = _count("qp.dense_chunk.launches")
+    prim = _count("collision.primitive.launches")
     res = solve(inits, {"goal": goals})
-    assert fd.COUNTER.launches > dense and tfp.COUNTER.launches > prim
+    assert _count("qp.dense_chunk.launches") > dense
+    assert _count("collision.primitive.launches") > prim
     assert (res.status == SQPStatus.CONVERGED).all()
     assert torch.isfinite(res.x).all()
 
@@ -362,9 +371,9 @@ def test_json_solve_on_the_card(cuda, monkeypatch):
     assert (card64.x - cpu64.x).abs().max() <= 1e-6
 
     jp = load_problem_file(path, env)
-    before = fd.COUNTER.launches
+    before = _count("qp.dense_chunk.launches")
     res = jp.solve()
-    assert fd.COUNTER.launches > before
+    assert _count("qp.dense_chunk.launches") > before
     assert res.x.device.type == "cuda" and res.x.dtype == torch.float32
     assert int(res.status[0]) == SQPStatus.CONVERGED
 
@@ -648,10 +657,10 @@ def test_convex_search_kernel_matches_plain(cuda, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-10
     inputs = _search_inputs(cuda, dtype)
     assert len(inputs) == 5                  # battery, discrete, 3 swept
-    tfc.COUNTER.reset()
+    profiling.reset()
     for inp in inputs:
         _hold_search(inp, tol)
-    assert tfc.COUNTER.launches == len(inputs)
+    assert _count("collision.convex.launches") == len(inputs)
     Va, Vb, axes, valid, _ = inputs[0]
     shift = 0.01 * torch.arange(3, dtype=dtype, device=cuda)[:, None, None,
                                                               None]
@@ -736,11 +745,64 @@ def test_convex_search_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tfc.select_cuda(Va, Vb.cpu(), axes, valid, cax)
 
 
+
+def test_node_maps_name_every_replayed_kernel(cuda):
+    """A 6-step flagship solve on 8 lanes, its regions captured by a first
+    solve, then profiled: every replay traces as many device spans as its
+    graph's node map (``aot_cache.node_maps``) holds, kernels, copies and
+    memsets in the map's order, and each primitive kernel it launches lies
+    in a ``collision.primitive`` node; the solve's device-to-host copies
+    are its counted host syncs."""
+    prob, _ = pr2ish_table_problem(n_steps=6, lvs_substeps=2)
+    solve = prob.make_solve(flagship_params(), structured=True)
+    inits, goals = pr2ish_table_batch(0, 8, 6, hard_frac=0.25)
+    solve(inits, {"goal": goals})
+    torch.cuda.synchronize()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solve(inits, {"goal": goals})
+        torch.cuda.synchronize()
+    got = profiling.counters()
+    assert got["capture.replays"] > 0 and "capture.captures" not in got
+    maps = aot_cache.node_maps()
+    dev_t = torch.autograd.DeviceType.CUDA
+    replays, graph_at, spans, d2h = [], {}, {}, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == dev_t:
+            if name.startswith(("sqp.", "qp.", "collision.")):
+                continue                    # a range's device annotation
+            spans.setdefault(e.correlation_id(), []).append(
+                (e.start_ns(), name))
+            d2h += "DtoH" in name
+        elif ".replay." in name:
+            replays.append((e.start_ns(), e.end_ns(), name))
+        elif name.startswith("cudaGraphLaunch"):
+            graph_at[e.correlation_id()] = e.start_ns()
+    assert d2h == got["host.syncs"] > 0
+    assert len(graph_at) == got["capture.replays"]
+    prim = 0
+    for corr, t in graph_at.items():
+        (name,) = [n for a, b, n in replays if a <= t <= b]
+        kinds, paths = maps[name]
+        run = [n for _, n in sorted(spans.get(corr, []))]
+        assert len(run) == len(kinds), name
+        for n, kind, path in zip(run, kinds, paths):
+            assert ("Memcpy" in n, "Memset" in n) == \
+                (kind == "memcpy", kind == "memset"), (name, n, kind)
+            if tfp.KERNEL in n:
+                assert "collision.primitive" in path, (name, n, path)
+                prim += 1
+    assert prim > 0
+
 def test_captured_convex_narrowphase_equals_eager(cuda):
     """A region holding the search kernel (``convex_convex`` on the
     battery), captured with ``aot_cache.cached_export``, replays equal to
     its eager run on new inputs; the wrapper is called while the region is
-    warmed up and captured, not when it is replayed."""
+    warmed up and captured, not when it is replayed, and the launch counter
+    counts the warm-up, every replay and every eager run."""
     Va, Vb, axes, valid = (torch.as_tensor(a, device=cuda, dtype=torch.float32
                                            if a.dtype != bool else None)
                            for a in _convex_battery())
@@ -751,15 +813,16 @@ def test_captured_convex_narrowphase_equals_eager(cuda):
     args = (Va, Vb, axes, valid)
     f = aot_cache.cached_export(region, args, "convex-search-test", memo={})
     aot_cache.STATS.reset()
-    tfc.COUNTER.reset()
+    profiling.reset()
     f(*args)
-    captured_at = tfc.COUNTER.launches
+    captured_at = _count("collision.convex.launches")
     assert captured_at >= 1 and aot_cache.STATS.captures == 1
     for step in (0.01, -0.02):
         moved = (Va + step, Vb, axes, valid)
         assert torch.equal(f(*moved), region(*moved))
     assert aot_cache.STATS.replays >= 2
-    assert tfc.COUNTER.launches == captured_at + 2     # the eager runs
+    # two replays and two eager runs
+    assert _count("collision.convex.launches") == captured_at + 4
 
 
 def test_sdf_query_on_the_card(cuda):
@@ -1034,7 +1097,7 @@ def test_primitive_kernel_matches_plain(cuda, kind, dtype):
     fks = (f0, f1) if kind == "swept" else (fd,)
     f64 = dtype == torch.float64
     d_tol, j_tol = (1e-12, 1e-9) if f64 else (1e-5, 1e-4)
-    tfp.COUNTER.reset()
+    profiling.reset()
     for jac in (True, False):
         got, ref = _kernel_and_plain(
             scene, kind, tuple(f if jac else f[:2] for f in fks))
@@ -1044,7 +1107,7 @@ def test_primitive_kernel_matches_plain(cuda, kind, dtype):
             bad |= (g - r).abs().amax(-1) > j_tol
         assert float(dd.max()) <= d_tol
         assert int(bad.sum()) <= (0 if f64 else 1e-3 * bad.numel())
-    assert tfp.COUNTER.launches == 2
+    assert _count("collision.primitive.launches") == 2
 
 
 def test_primitive_kernel_reads_broadcasts_as_strides(cuda):
@@ -1096,7 +1159,7 @@ def test_primitive_kernel_one_group_ragged_and_empty(cuda, dtype):
         [("static", ("capsule", "box"))]
     f64 = dtype == torch.float64
     d_tol, j_tol = (1e-12, 1e-9) if f64 else (1e-5, 1e-4)
-    tfp.COUNTER.reset()
+    profiling.reset()
     for jac in (True, False):
         got, ref = _kernel_and_plain(
             scene, "swept", tuple(f if jac else f[:2] for f in fks))
@@ -1106,12 +1169,14 @@ def test_primitive_kernel_one_group_ragged_and_empty(cuda, dtype):
             bad |= (g - r).abs().amax(-1) > j_tol
         assert float(dd.max()) <= d_tol
         assert int(bad.sum()) <= (0 if f64 else 1e-3 * bad.numel())
-    assert tfp.COUNTER.launches == tfp.COUNTER.kernels == 2
+    assert _count("collision.primitive.launches") == 2
+    assert _count("collision.primitive.kernels") == 2
     empty = tuple(tuple(t[:0] for t in f) for f in fks)
     outs = scene._outputs("swept", empty[0][0], 2)
     tfp.query_cuda(plan, empty, None, outs)
     assert outs[0].shape == (0, scene.n_pairs)
-    assert tfp.COUNTER.launches == tfp.COUNTER.kernels == 2
+    assert _count("collision.primitive.launches") == 2
+    assert _count("collision.primitive.kernels") == 2
 
 
 def test_primitive_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -1153,7 +1218,8 @@ def test_captured_primitive_narrowphase_equals_eager(cuda):
     """A region holding the primitive kernel (the flagship scene's swept
     Jacobians), captured with ``aot_cache.cached_export``, replays equal
     to its eager run on new inputs; the wrapper is called while the
-    region is warmed up and captured, not when it is replayed."""
+    region is warmed up and captured, not when it is replayed, and the
+    launch counter counts the warm-up, every replay and every eager run."""
     scene, f0, f1, _ = _flagship_poses(cuda, torch.float32, B=4)
     f0, f1 = (tuple(t.contiguous() for t in f) for f in (f0, f1))
 
@@ -1163,9 +1229,9 @@ def test_captured_primitive_narrowphase_equals_eager(cuda):
     args = (*f0, *f1)
     f = aot_cache.cached_export(region, args, "primitive-test", memo={})
     aot_cache.STATS.reset()
-    tfp.COUNTER.reset()
+    profiling.reset()
     f(*args)
-    captured_at = tfp.COUNTER.launches
+    captured_at = _count("collision.primitive.launches")
     assert captured_at >= 1 and aot_cache.STATS.captures == 1
     for step in (0.01, -0.02):
         moved = (*f0[:1], f0[1] + step, *f0[2:], *f1[:1], f1[1] + step,
@@ -1173,4 +1239,5 @@ def test_captured_primitive_narrowphase_equals_eager(cuda):
         for a, b in zip(f(*moved), region(*moved)):
             assert torch.equal(a, b)
     assert aot_cache.STATS.replays >= 2
-    assert tfp.COUNTER.launches == captured_at + 2     # the eager runs
+    # two replays and two eager runs
+    assert _count("collision.primitive.launches") == captured_at + 4

@@ -20,6 +20,13 @@ from trajopt_tpu_torch.collision import fused_primitive as fp
 from trajopt_tpu_torch.collision import geometry as geom
 from trajopt_tpu_torch.collision import world as tw
 from trajopt_tpu_torch.models.robots import pr2ish, pr2ish_scene
+from trajopt_tpu_torch.utils import profiling
+
+
+def _count(name):
+    """The registry's counter ``name`` (0 before its first count)."""
+    return profiling.counters().get(name, 0)
+
 
 torch.set_num_threads(2)
 
@@ -251,7 +258,7 @@ def test_query_dispatches_by_device(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("the kernel route ran on CPU tensors")
 
-    fp.COUNTER.reset()
+    profiling.reset()
     monkeypatch.setattr(fp, "query_cuda", refuse)
     f0, f1 = tree.fk_with_axes(q0), tree.fk_with_axes(q1)
     plan = fp.plan_of(scene, "swept", f0[0])
@@ -260,7 +267,7 @@ def test_query_dispatches_by_device(monkeypatch):
     ref = fp.query_plain(scene, plan, (f0, f1), params, outs)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    assert fp.COUNTER.launches == 0
+    assert _count("collision.primitive.launches") == 0
     monkeypatch.undo()
     # meta tensors (a problem's row-count check) get the outputs' shapes
     meta = tuple(t.to("meta") for t in f0)

@@ -29,6 +29,13 @@ from trajopt_tpu_torch.qp import fused_block as fb
 from trajopt_tpu_torch.qp.admm import ADMMConfig
 from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.solver import block_qp
+from trajopt_tpu_torch.utils import profiling
+
+
+def _count(name):
+    """The registry's counter ``name`` (0 before its first count)."""
+    return profiling.counters().get(name, 0)
+
 
 torch.set_num_threads(2)
 
@@ -159,11 +166,11 @@ def test_chunk_cuda_refuses_cpu_tensors():
     """The kernel wrapper never falls back to the plain version."""
     args = [torch.as_tensor(v, dtype=torch.float32)
             for v in map(_chunk_inputs().get, fb._ARG_NAMES)]
-    before = fb.COUNTER.launches
+    before = _count("qp.block_chunk.launches")
     with pytest.raises(ValueError, match="CUDA"):
         fb.chunk_cuda(*args, D=D, sigma=SIGMA, alpha=ALPHA, rho_b=RHO_B,
                       n_iters=1)
-    assert fb.COUNTER.launches == before
+    assert _count("qp.block_chunk.launches") == before
 
 
 def test_block_banded_helpers_match_jax():

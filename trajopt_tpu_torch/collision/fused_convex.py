@@ -34,10 +34,10 @@ import torch
 
 from trajopt_tpu_torch import kernels
 from trajopt_tpu_torch.collision import convex as cvx
+from trajopt_tpu_torch.utils import profiling
 
 SOURCE = kernels.CSRC / "convex_narrowphase.cu"
 FLAGS = [*kernels.NVCC_FLAGS, "--fmad=false"]
-COUNTER = kernels.LaunchCounter()
 KERNEL = "convex_select_kernel"      # the kernel's name in a profile
 MAX_DIMS = 4                         # batch dims the kernel indexes
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -225,7 +225,7 @@ def select_cuda(Va, Vb, axes, valid, cax, iters: int = cvx.GJK_ITERS):
         if err != 0:
             raise RuntimeError(f"convex_select launch failed: CUDA error "
                                f"{err}")
-        COUNTER.launches += 1
+        profiling.count("collision.convex.launches")
     return out
 
 

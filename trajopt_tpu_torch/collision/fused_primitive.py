@@ -58,6 +58,7 @@ from trajopt_tpu_torch import kernels
 from trajopt_tpu_torch.collision import geometry as geom
 from trajopt_tpu_torch.collision.fused_convex import _batch_layout
 from trajopt_tpu_torch.kinematics.transforms import matvec
+from trajopt_tpu_torch.utils import profiling
 
 SPHERE, CAPSULE, BOX = "sphere", "capsule", "box"
 SOURCE = kernels.CSRC / "primitive_narrowphase.cu"
@@ -65,7 +66,7 @@ HOST_SOURCE = kernels.CSRC / "primitive_host.cpp"
 FLAGS = [*kernels.NVCC_FLAGS, "--fmad=false"]
 HOST_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC"]
 KERNEL = "primitive_narrowphase_kernel"   # each instantiation's profile name
-RANGE = "collision.primitive"             # the profiler range of a query
+RANGE = "collision.primitive"             # the span of a query
 MODES = ("pairs", "moving", "static")     # discrete; swept, both moving;
 #                                           swept against static geometry
 _KIND = {SPHERE: 0, CAPSULE: 1, BOX: 2}
@@ -80,23 +81,6 @@ KEYS = frozenset({("pairs", k) for k in _DISCRETE}
 MAX_DIMS = 4          # batch dims the kernel indexes
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _LIBS = {}
-
-
-class QueryCounter(kernels.LaunchCounter):
-    """``launches``: query calls that launched the kernel, one a call (as
-    when one launch took all of a call's groups); ``kernels``: kernel
-    launches, one a group with queries."""
-
-    def __init__(self):
-        super().__init__()
-        self.kernels = 0
-
-    def reset(self):
-        super().reset()
-        self.kernels = 0
-
-
-COUNTER = QueryCounter()
 
 
 # ------------------------------------------------------- the plain version
@@ -563,8 +547,10 @@ def _launch(plan: Plan, fks, params, outs, host: bool) -> None:
                            f"{'host run' if host else 'launch'} failed: "
                            f"error {err}")
     if not host:
-        COUNTER.launches += 1
-        COUNTER.kernels += len(groups)
+        profiling.count("collision.primitive.launches")
+        profiling.count("collision.primitive.kernels", len(groups))
+        profiling.count("collision.primitive.queries",
+                        n_batch * sum(n for _, n, _ in groups))
 
 
 # Floating-point operations of the kernel's functions on plain values (a
@@ -675,12 +661,15 @@ def _refuse_transforms(fks, params, outs) -> None:
 def query(scene, kind: str, fks, params, outs):
     """``outs`` with the primitive groups of ``scene``'s ``kind`` query
     (``"pairs"`` or ``"swept"``) filled in (see :func:`query_plain`), inside
-    the profiler range ``collision.primitive`` when the query has such
-    groups.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel for the groups in :data:`KEYS`, in place, and run the plain
-    version for the rest (a ``torch.func`` transform or an input that
-    requires grad raises); meta tensors return the outputs as they are
-    (their shapes); any other device raises."""
+    the span ``collision.primitive`` when the query has such groups.  A
+    call that launches the kernel counts ``collision.primitive.launches``
+    (one), ``.kernels`` (one a group) and ``.queries`` (the groups' queries,
+    pad lanes included); under a captured region each replay counts them
+    again (``utils/profiling.py``).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel for the groups in :data:`KEYS`, in
+    place, and run the plain version for the rest (a ``torch.func``
+    transform or an input that requires grad raises); meta tensors return
+    the outputs as they are (their shapes); any other device raises."""
     dev = outs[0].device
     if dev.type == "meta":
         return outs
@@ -691,7 +680,7 @@ def query(scene, kind: str, fks, params, outs):
     plan = plan_of(scene, kind, fks[0][0])
     if not plan.groups:
         return outs
-    with torch.profiler.record_function(RANGE):
+    with profiling.span(RANGE):
         if dev.type == "cpu":
             return query_plain(scene, plan, fks, params, outs)
         if plan.kernel_groups:

@@ -56,6 +56,7 @@ from trajopt_tpu_torch.kinematics import urdf as urdf_mod
 from trajopt_tpu_torch.kinematics.chain import KinematicTree
 from trajopt_tpu_torch.kinematics.transforms import matvec, rpy_matrix
 from trajopt_tpu_torch.utils import forget_on_device, on_device
+from trajopt_tpu_torch.utils.profiling import span
 
 SPHERE, CAPSULE, BOX, SDF = "sphere", "capsule", "box", "sdf"
 # Convex polytope (mesh hull) geometry: vertex set + face normals + edge
@@ -691,7 +692,7 @@ class CollisionScene:
                 return (self._convex_discrete(
                     ta, tb, self._side(ta, Rs, ps, params),
                     self._side(tb, Rs, ps, params)),)
-            with torch.profiler.record_function("collision.convex"):
+            with span("collision.convex"):
                 outs = fp.put(outs, self._index("pairs", idx, R.device),
                           _cat_runs([run(sl) for sl in
                                      self._lane_slices(key, ta, tb, R)]))
@@ -731,7 +732,7 @@ class CollisionScene:
                                               ta["mask"], *ax)
                         + fp.compose_pose_grads(g[2], g[3], *sb[:2],
                                                 tb["mask"], *ax))
-                with torch.profiler.record_function("collision.convex"):
+                with span("collision.convex"):
                     outs = fp.put(outs, self._index("pairs", idx, R.device),
                               _cat_runs([run(sl) for sl in
                                          self._lane_slices(key, ta, tb, R)]))
@@ -768,7 +769,7 @@ class CollisionScene:
                     self._side(tb, Rs[sl], ps[sl], params))
                      for Rs, ps in ((R0, p0), (R1, p1))]
                 return (torch.minimum(*d),)
-            with torch.profiler.record_function("collision.convex"):
+            with span("collision.convex"):
                 outs = fp.put(outs, self._index("swept", idx, R0.device),
                           _cat_runs([run(sl) for sl in
                                      self._lane_slices(key, ta, tb, R0)]))
@@ -782,7 +783,7 @@ class CollisionScene:
                     ta, tb, self._side(ta, R0[sl], p0[sl], params),
                     self._side(ta, R1[sl], p1[sl], params),
                     self._side(tb, R0[sl], p0[sl], params)),)
-            with torch.profiler.record_function("collision.convex"):
+            with span("collision.convex"):
                 outs = fp.put(outs, self._index("swept", idx, R0.device),
                           _cat_runs([run(sl) for sl in self._lane_slices(
                               key, ta, tb, R0, swept=True)]))
@@ -842,7 +843,7 @@ class CollisionScene:
                             + c0(g[2], g[3], *sb0[:2], tb, sl),
                             c1(g[4], g[5], *sa1[:2], ta, sl)
                             + c1(g[6], g[7], *sb1[:2], tb, sl))
-                with torch.profiler.record_function("collision.convex"):
+                with span("collision.convex"):
                     outs = fp.put(outs, self._index("swept", idx, R0.device),
                               _cat_runs([run(sl) for sl in
                                          self._lane_slices(key, ta, tb, R0)]))
@@ -861,7 +862,7 @@ class CollisionScene:
                     g = fp.grads(d, leaves)
                     return (d.detach(), c0(g[0], g[1], *sa0[:2], ta, sl),
                             c1(g[2], g[3], *sa1[:2], ta, sl))
-                with torch.profiler.record_function("collision.convex"):
+                with span("collision.convex"):
                     outs = fp.put(outs, self._index("swept", idx, R0.device),
                               _cat_runs([run(sl) for sl in self._lane_slices(
                                   key, ta, tb, R0, swept=True)]))

@@ -1,4 +1,4 @@
-"""Building and counting the hand-written CUDA kernels of ``csrc/``.
+"""Building the hand-written CUDA kernels of ``csrc/``.
 
 Each kernel is one ``.cu`` file with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library at first use (one build per
@@ -29,17 +29,6 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SMEM_LIMIT = 232_448       # bytes of shared memory a Hopper block may use
-
-
-class LaunchCounter:
-    """Counts kernel launches (incremented only where the kernel is
-    launched, never by the plain version)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self):
-        self.launches = 0
 
 
 def _nvcc() -> str:

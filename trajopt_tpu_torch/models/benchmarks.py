@@ -29,6 +29,7 @@ from trajopt_tpu_torch.qp.admm import ADMMConfig
 from trajopt_tpu_torch.sqp.params import SQPParams
 from trajopt_tpu_torch.terms.collision import collision_term
 from trajopt_tpu_torch.terms.joint import joint_pos, joint_vel
+from trajopt_tpu_torch.utils.profiling import host_read
 
 ARM7_HOME = np.array([-0.5, 1.0, 0.0, -1.2, 0.0, 0.8, 0.0])
 ARM7_GOAL = np.array([0.9, 1.0, 0.0, -1.2, 0.0, 0.8, 0.0])
@@ -273,8 +274,9 @@ def swept_verify(scene: CollisionScene, traj: torch.Tensor,
     reference checkTrajectory's LONGEST_VALID_SEGMENT_LENGTH) and checked
     with ``swept_distances``.  A lane is collision-free when its value is
     > 0."""
-    max_disp = float(torch.linalg.vector_norm(torch.diff(traj, dim=1),
-                                              dim=-1).max())
+    max_disp = host_read("collision", "verify", float,
+                         torch.linalg.vector_norm(torch.diff(traj, dim=1),
+                                                  dim=-1).max())
     n_sub = max(1, int(np.ceil(max_disp / check_len)))
     fr = torch.linspace(0.0, 1.0, n_sub + 1, dtype=traj.dtype,
                         device=traj.device)

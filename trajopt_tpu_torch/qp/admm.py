@@ -25,10 +25,10 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from trajopt_tpu_torch.qp import fused_dense
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse
+from trajopt_tpu_torch.utils.profiling import count, host_read, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,7 +303,7 @@ def solve_qp(qp: QPData, x0, z0=None, y0=None,
     units; termination residuals are unscaled (OSQP).  A lane runs chunks
     of ``check_every`` iterations while it is not converged and under
     ``max_iter``."""
-    with record_function("qp.prepare"):
+    with span("qp.prepare"):
         prep = prepare_qp(qp, x0, z0, y0, cfg)
     return solve_qp_prepared(prep, cfg)
 
@@ -326,11 +326,17 @@ def solve_qp_prepared(prep: DensePrepared,
         converged=torch.zeros(B, dtype=torch.bool, device=dev),
         aa_V=x.new_zeros(B, K, 2 * m), aa_F=x.new_zeros(B, K, 2 * m),
         aa_cnt=torch.zeros(B, dtype=torch.int32, device=dev))
-    run = ~st.converged & (st.iters < cfg.max_iter)
-    while bool(run.any()):
+    run = st.iters < cfg.max_iter               # no lane has converged yet
+    # The live lanes as int32 step ``iters``, and their sum is the loop's one
+    # host read a chunk (a sum of the bool mask would cast it first).
+    on = run.to(torch.int32)
+    n_run = host_read("qp", "dense_chunk", int, on.sum(dtype=on.dtype))
+    count("qp.admm.lane_solves", n_run)
+    while n_run:
+        count("qp.admm.lane_iters", n_run * cfg.check_every)
         if cfg.adaptive_rho:
             rho_vec = _row_rho(qp, cfg, st.rho_scale)
-            with record_function("qp.prepare"):
+            with span("qp.prepare"):
                 minv = _factor(qp, cfg, rho_vec)
         else:
             rho_vec, minv = prep.rho, prep.minv
@@ -374,11 +380,16 @@ def solve_qp_prepared(prep: DensePrepared,
 
         new = _DenseState(
             x=x, z=z, y=y, rho_scale=rho_scale,
-            iters=st.iters + cfg.check_every, pri=pri, dua=dua,
-            converged=converged, aa_V=aa_V, aa_F=aa_F, aa_cnt=aa_cnt)
-        st = _DenseState(*(torch.where(run.view(-1, *([1] * (a.dim() - 1))),
-                                       a, b) for a, b in zip(new, st)))
+            iters=torch.add(st.iters, on, alpha=cfg.check_every), pri=pri,
+            dua=dua, converged=converged, aa_V=aa_V, aa_F=aa_F,
+            aa_cnt=aa_cnt)
+        st = _DenseState(*(
+            a if f == "iters" else      # stepped on the live lanes only
+            torch.where(run.view(-1, *([1] * (a.dim() - 1))), a, b)
+            for f, a, b in zip(_DenseState._fields, new, st)))
         run = ~st.converged & (st.iters < cfg.max_iter)
+        on = run.to(torch.int32)
+        n_run = host_read("qp", "dense_chunk", int, on.sum(dtype=on.dtype))
     return ADMMResult(
         x=st.x * sc.D, z=st.z / sc.E,
         y=st.y * (sc.E / sc.c_obj[:, None]), iters=st.iters,

@@ -20,6 +20,7 @@ from trajopt_tpu_torch.qp import fused_block
 from trajopt_tpu_torch.qp.admm import ADMMConfig, ADMMResult, \
     apply_dual_cost_scale
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse, ns_inverse
+from trajopt_tpu_torch.utils.profiling import count, host_read
 
 
 class BlockQP(NamedTuple):
@@ -197,7 +198,13 @@ def solve_qp_block_prepared(prep: PreparedBlockQP, lb, ub, x0, zc0=None,
     conv = torch.zeros(B, dtype=torch.bool, device=x.device)
     live = torch.ones_like(conv) if active is None else active.clone()
     run = live & ~conv & (iters < cfg.max_iter)
-    while bool(run.any()):
+    # The live lanes as int32 step ``iters``, and their sum is the loop's one
+    # host read a chunk (a sum of the bool mask would cast it first).
+    on = run.to(iters.dtype)
+    n_run = host_read("qp", "block_chunk", int, on.sum(dtype=on.dtype))
+    count("qp.admm.lane_solves", n_run)
+    while n_run:
+        count("qp.admm.lane_iters", n_run * cfg.check_every)
         # The kernel takes rho_b as the scalar cfg.rho: prepare_qp_block
         # builds rho_b as that uniform value.
         state, st = fused_block.chunk(
@@ -211,8 +218,10 @@ def solve_qp_block_prepared(prep: PreparedBlockQP, lb, ub, x0, zc0=None,
         pri = torch.where(run, st.pri, pri)
         dua = torch.where(run, st.dua, dua)
         conv = torch.where(run, c_new, conv)
-        iters = iters + run.to(iters.dtype) * cfg.check_every
+        iters = torch.add(iters, on, alpha=cfg.check_every)
         run = live & ~conv & (iters < cfg.max_iter)
+        on = run.to(iters.dtype)
+        n_run = host_read("qp", "block_chunk", int, on.sum(dtype=on.dtype))
     x, zc, zb, yc, yb = state
     cobj = sc.c_obj[:, None]
     return ADMMResult(

@@ -25,6 +25,7 @@ from trajopt_tpu_torch.qp.admm import (ADMMConfig, ADMMResult, _inf_norm,
                                        _inv_sqrt, _prox_dist,
                                        apply_dual_cost_scale)
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse
+from trajopt_tpu_torch.utils.profiling import count, host_read
 
 
 class StructuredQP(NamedTuple):
@@ -151,7 +152,13 @@ def solve_qp_structured(qp: StructuredQP, x0, zc0=None, zb0=None, yc0=None,
     conv = torch.zeros(B, dtype=torch.bool, device=x.device)
     state = (x, zc, zb, yc, yb)
     run = ~conv & (iters < cfg.max_iter)
-    while bool(run.any()):
+    # The live lanes as int32 step ``iters``, and their sum is the loop's one
+    # host read a chunk (a sum of the bool mask would cast it first).
+    on = run.to(iters.dtype)
+    n_run = host_read("qp", "banded_chunk", int, on.sum(dtype=on.dtype))
+    count("qp.admm.lane_solves", n_run)
+    while n_run:
+        count("qp.admm.lane_iters", n_run * cfg.check_every)
         new = state
         for _ in range(cfg.check_every):
             new = admm_iter(*new)
@@ -175,8 +182,10 @@ def solve_qp_structured(qp: StructuredQP, x0, zc0=None, zb0=None, yc0=None,
         dua = torch.where(run, d_new, dua)
         conv = torch.where(run, (p_new <= eps_pri) & (d_new <= eps_dua),
                            conv)
-        iters = iters + run.to(iters.dtype) * cfg.check_every
+        iters = torch.add(iters, on, alpha=cfg.check_every)
         run = ~conv & (iters < cfg.max_iter)
+        on = run.to(iters.dtype)
+        n_run = host_read("qp", "banded_chunk", int, on.sum(dtype=on.dtype))
     x, zc, zb, yc, yb = state
     return ADMMResult(
         x=x * sc.D,

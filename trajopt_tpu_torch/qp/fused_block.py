@@ -27,9 +27,9 @@ import torch
 
 from trajopt_tpu_torch import kernels
 from trajopt_tpu_torch.qp import block_banded as bb
+from trajopt_tpu_torch.utils import profiling
 
 SOURCE = kernels.CSRC / "admm_block_chunk.cu"
-COUNTER = kernels.LaunchCounter()
 _LIB = None
 
 
@@ -234,7 +234,7 @@ def chunk_cuda(Minv, Wb, P, q, lc, uc, cr, rho_c, lb, ub, bd, Ec, Eb, Dd,
         if err != 0:
             raise RuntimeError(f"admm_block_chunk launch failed: CUDA error "
                                f"{err}")
-        COUNTER.launches += 1
+        profiling.count("qp.block_chunk.launches")
     return tuple(outs), ChunkStats(*stats.unbind(-1))
 
 

@@ -31,9 +31,9 @@ import functools
 import torch
 
 from trajopt_tpu_torch import kernels
+from trajopt_tpu_torch.utils import profiling
 
 SOURCE = kernels.CSRC / "admm_dense_chunk.cu"
-COUNTER = kernels.LaunchCounter()
 _LIB = None
 
 
@@ -222,7 +222,7 @@ def chunk_cuda(Minv, A, q, l, u, cr, rho, x, z, y, *, sigma, alpha, n_iters,
         if err != 0:
             raise RuntimeError(f"admm_dense_chunk launch failed: CUDA error "
                                f"{err}")
-        COUNTER.launches += 1
+        profiling.count("qp.dense_chunk.launches")
     return tuple(outs)
 
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from trajopt_tpu_torch.utils.profiling import host_read
+
 
 def _eye(M: torch.Tensor) -> torch.Tensor:
     return torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
@@ -53,7 +55,7 @@ def _ns_loop(M, X, r, k, tol, budget):
     the Frobenius residual of the iterate before the last update."""
     eye = _eye(M)
     active = (r > tol) & (k < budget)
-    while bool(active.any()):
+    while host_read("qp", "ns", bool, active.any()):
         E = eye - M @ X
         r_new = _fro(E)
         X_new = X + X @ E

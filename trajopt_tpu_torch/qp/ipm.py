@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from trajopt_tpu_torch.qp.admm import ADMMResult, QPData
+from trajopt_tpu_torch.utils.profiling import host_read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +210,7 @@ def solve_qp_ipm(qp: QPData, x0: torch.Tensor | None = None,
     res = res_norm(r_d0, r_p0)
     converged = torch.zeros(B, dtype=torch.bool, device=dev)
     run = ~converged & (iters < cfg.max_iter)
-    while bool(run.any()):
+    while host_read("qp", "ipm", bool, run.any()):
         w_n, lam_n, s_n = step(w, lam, s)
         r_d_n, r_p_n = residuals(w_n, lam_n, s_n)
         mu_n = _dot(lam_n, s_n) / n_act

@@ -43,7 +43,6 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from trajopt_tpu_torch.qp import banded as bd
 from trajopt_tpu_torch.qp import block_banded as bb
@@ -59,6 +58,7 @@ from trajopt_tpu_torch.sqp import nlp as nlp_mod
 from trajopt_tpu_torch.sqp.nlp import ConvexModel, Nlp, StructuredModel
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
 from trajopt_tpu_torch.utils import aot_cache
+from trajopt_tpu_torch.utils.profiling import host_read, span
 
 
 class SQPResult(NamedTuple):
@@ -137,7 +137,7 @@ def _put(tree, idx, sub):
 def _live(mask: torch.Tensor):
     """(any, idx): whether any lane is set, and the set lanes' indices
     (None when all are set, so the common case gathers nothing)."""
-    idx = torch.nonzero(mask).squeeze(1)
+    idx = host_read("sqp", "live", torch.nonzero, mask).squeeze(1)
     if idx.numel() == 0:
         return False, None
     return True, (None if idx.numel() == mask.numel() else idx)
@@ -401,9 +401,9 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
 
     def trust_body(ts: _TrustState, ctx) -> _TrustState:
         x_state, merit_coeffs, old_merit, model, prep, params, lb, ub, B = ctx
-        with record_function("sqp.qp"):
+        with span("sqp.qp"):
             if not structured and sqp.qp_algorithm == "admm":
-                with record_function("qp.prepare"):
+                with span("qp.prepare"):
                     dprep = region("qp_prepare", dense_prepare_region,
                                    (x_state, ts.box_size, lb, ub, model,
                                     merit_coeffs, ts.x, ts.z, ts.y), B,
@@ -428,7 +428,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
                     res = solve_qp_ipm(
                         build_qp(nlp, model, merit_coeffs, lb_box, ub_box),
                         ts.x, cfg=ipm_config(x_state.dtype, cfg.eps_abs))
-        with record_function("sqp.evaluate"):
+        with span("sqp.evaluate"):
             return region("evaluate", evaluate_region,
                           (ts, merit_coeffs, old_merit, model, params,
                            res.x, res.z, res.y), B)
@@ -525,13 +525,13 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
 
     def sqp_step(state: _State, params, lb, ub, jac_cache, r_inits,
                  B: int) -> _State:
-        with record_function("sqp.convexify"):
+        with span("sqp.convexify"):
             model, prep, M = region(
                 "convexify", convexify_region,
                 (state.x, params, jac_cache, state.merit_coeffs), B)
         new_minv = state.minv
         if ns_refresh:
-            with record_function("qp.prepare"):
+            with span("qp.prepare"):
                 prep = invert_block_system(prep, M, cfg, minv0=state.minv)
             new_minv = prep.Minv
         ts = trust_loop(state, model, prep, params, lb, ub, B)
@@ -607,7 +607,8 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
             n_family = r_inits.shape[1]
             j0 = max(0, sqp.max_restarts - n_family)
             use_alt = restart & (state.restarts_used >= j0)
-            alt_idx = torch.nonzero(use_alt).squeeze(1)
+            alt_idx = host_read("sqp", "restart", torch.nonzero,
+                                use_alt).squeeze(1)
             if alt_idx.numel():
                 k = torch.clamp(state.restarts_used[alt_idx] - j0, 0,
                                 n_family - 1).long()
@@ -686,7 +687,7 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
         # getClosestFeasiblePoint (modeling.cpp:260): box-only projection.
         x0 = torch.minimum(torch.maximum(x0, lb), ub)
         coeffs0 = x0.new_full((B, n_cnt), sqp.initial_merit_error_coeff)
-        with record_function("sqp.init"):
+        with span("sqp.init"):
             jac_cache, minv, cost_vals, cnt_viols = region(
                 "init", init_region, (x0, params, coeffs0), B)
 
@@ -708,8 +709,9 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
             anyone, idx = _live(state.status == SQPStatus.RUNNING)
             if not anyone:
                 break
-            state = _put(state, idx,
-                         sqp_pass(_take(state, idx), _take(lane, idx)))
+            with span("sqp.pass"):
+                state = _put(state, idx,
+                             sqp_pass(_take(state, idx), _take(lane, idx)))
         return SQPResult(
             x=state.x, status=state.status, cost_vals=state.cost_vals,
             cnt_viols=state.cnt_viols, total_cost=state.cost_vals.sum(-1),

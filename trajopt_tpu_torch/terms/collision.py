@@ -41,7 +41,9 @@ import torch
 
 from trajopt_tpu_torch.collision.world import CollisionScene
 from trajopt_tpu_torch.sqp.nlp import Consts, Kind, TermSet, banded_to_dense
+from trajopt_tpu_torch.utils.profiling import span
 
+FK = "collision.fk"          # the span of the FK prologue of a term's queries
 EVALUATORS = ("discrete", "lvs_discrete", "cast")
 AGGREGATES = ("none", "weighted_average")
 
@@ -220,14 +222,17 @@ def _discrete_term(name, kind, scene, n_steps, n_dof_total, coeff_mat,
 
     def raw(x, params):
         """Exact residual rows [B, S * k]."""
-        rows = sel.values(_viol(scene.distances(tree.fk(_qs(x)), params),
-                                x))
+        with span(FK):
+            fk = tree.fk(_qs(x))
+        rows = sel.values(_viol(scene.distances(fk, params), x))
         return rows.reshape(x.shape[0], -1)
 
     def _select(x, params):
         """(rows [B, S, k], Jacobian blocks [B, S, k, n_dof]) from one
         narrowphase pass, after the within-step selection."""
-        ds, Js = scene.distances_and_jac(tree.fk_with_axes(_qs(x)), params)
+        with span(FK):
+            fk = tree.fk_with_axes(_qs(x))
+        ds, Js = scene.distances_and_jac(fk, params)
         cf = consts.get("coeff", x)
         viol, (Js,) = sel.select(_viol(ds, x), cf, -Js * cf[..., None])
         return viol, Js
@@ -311,12 +316,14 @@ def _gap_term(name, kind, scene, n_steps, n_dof_total, coeff_mat, margin_mat,
 
     def raw(x, params):
         """Exact residual rows [B, G * n_sub * k]."""
+        q = _interp(x)
+        with span(FK):
+            R, p = tree.fk(q)                       # [B, G, n_sub+1, L, ...]
         if swept:
-            R, p = tree.fk(_interp(x))              # [B, G, n_sub+1, L, ...]
             ds = scene.swept_distances((R[:, :, :-1], p[:, :, :-1]),
                                        (R[:, :, 1:], p[:, :, 1:]), params)
         else:
-            ds = scene.distances(tree.fk(_interp(x)), params)
+            ds = scene.distances((R, p), params)
         return sel.values(_viol(ds, x)).reshape(x.shape[0], -1)
 
     def val_banded_jac(x, params):
@@ -324,7 +331,9 @@ def _gap_term(name, kind, scene, n_steps, n_dof_total, coeff_mat, margin_mat,
         over all lanes, gaps and sub-queries (swept: endpoint FK shared
         across sub-segments), Jacobians chained through the interpolation
         q_f = (1 - f) q0 + f q1."""
-        R, p, z, o = tree.fk_with_axes(_interp(x))
+        q = _interp(x)
+        with span(FK):
+            R, p, z, o = tree.fk_with_axes(q)
         if swept:
             ds, Ja, Jb = scene.swept_distances_and_jac(
                 (R[:, :, :-1], p[:, :, :-1], z[:, :, :-1], o[:, :, :-1]),

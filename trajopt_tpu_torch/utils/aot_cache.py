@@ -32,36 +32,78 @@ the captured path against the eager one in one process.
 of captures small for regions called on a shrinking set of live lanes: a
 region called on ``k`` lanes runs at the next power of two, capped at the
 full batch, padded by repeats of its first lane.
+
+Every capture records its graph's node map (:func:`node_maps`): the span
+of ``utils/profiling.py`` that each traced node (kernel, copy, memset) was
+launched under, in the order the replay runs them, since a captured
+region's spans do not run again on replay.  Each replay runs inside the
+span ``<key>.replay.<n>`` (``n`` numbers the process's graphs), which names
+the map of the graph it launches, and adds the counts of the captured pass
+to the counter registry.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
+import itertools
 import sys
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from trajopt_tpu_torch.utils import profiling
 
 PKG = Path(__file__).resolve().parents[1]
 _SOURCE_SUFFIXES = (".py", ".cu", ".cpp", ".cuh", ".h")
 
 
 class CaptureStats:
-    """Counts of captures, their seconds, and replays (for reports; the
-    counts cover every ``cached_export`` callable of the process)."""
+    """Counts of captures, their seconds, and replays over every
+    ``cached_export`` callable of the process since :meth:`reset`, read
+    from the port's counter registry (``utils/profiling.py``:
+    ``capture.captures``, ``capture.seconds``, ``capture.replays``).
+    :meth:`reset` clears nothing: it keeps a snapshot of the registry, and
+    the counts are read less it (from the registry's own
+    ``profiling.reset()`` where that came later).
+
+    :meth:`since_reset` reads every counter so, and is a stop-gap:
+    ``port_bench/run.py`` marks its measured window only by
+    ``STATS.reset()``, so the benchmark's counter readers read the window
+    through it, until ``run.py`` snapshots ``profiling.counters()`` at the
+    window's edges itself."""
 
     def __init__(self):
-        self.reset()
+        self._base = (None, {})             # (profiling.resets(), counts)
+
+    def since_reset(self) -> dict:
+        """Every counter of the registry less its count at the later of
+        :meth:`reset` and ``profiling.reset()``."""
+        resets, base = self._base
+        now = profiling.counters()
+        if resets != profiling.resets():
+            return now
+        return {name: n - base.get(name, 0) for name, n in now.items()}
+
+    @property
+    def captures(self) -> int:
+        return self.since_reset().get("capture.captures", 0)
+
+    @property
+    def capture_s(self) -> float:
+        return self.since_reset().get("capture.seconds", 0.0)
+
+    @property
+    def replays(self) -> int:
+        return self.since_reset().get("capture.replays", 0)
 
     def reset(self):
-        self.captures = 0
-        self.capture_s = 0.0
-        self.replays = 0
+        self._base = (profiling.resets(), profiling.counters())
 
     def __repr__(self):
         return (f"captures {self.captures}, capture seconds "
@@ -75,6 +117,91 @@ _EAGER = [0]
 _EPOCH = [0]
 _STREAMS: dict = {}
 _HASH: dict = {}
+_GRAPH_IDS = itertools.count()
+_NODE_MAPS: dict = {}
+_CU: dict = {}
+# CUgraphNodeType values of the nodes a profiler traces on replay
+_TRACED = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+class NodeMap(NamedTuple):
+    """The traced nodes of one captured graph in creation order, which a
+    single-stream capture runs them in: each one's kind (``"kernel"``,
+    ``"memcpy"``, ``"memset"``) and the stack of spans it was launched
+    under (outermost first; ``()`` outside every span of the region)."""
+    kinds: tuple
+    paths: tuple
+
+
+def node_maps() -> dict:
+    """{replay span name: :class:`NodeMap`} of every graph captured in the
+    process whose nodes could be read."""
+    return dict(_NODE_MAPS)
+
+
+def _libcuda():
+    """``libcuda.so.1`` with the capture queries' signatures, or None where
+    it cannot be loaded or lacks one of them."""
+    if "lib" not in _CU:
+        try:
+            lib = ctypes.CDLL("libcuda.so.1")
+            p = ctypes.c_void_p
+            for fn, n_args in ((lib.cuStreamGetCaptureInfo_v2, 6),
+                               (lib.cuGraphGetNodes, 3),
+                               (lib.cuGraphNodeGetType, 2)):
+                fn.argtypes = [p] * n_args
+                fn.restype = ctypes.c_int
+        except (OSError, AttributeError):
+            lib = None
+        _CU["lib"] = lib
+    return _CU["lib"]
+
+
+def _capture_nodes(stream: torch.cuda.Stream) -> list | None:
+    """The nodes (``CUgraphNode`` handles) of the graph that ``stream`` is
+    capturing into, in creation order; None where they cannot be read."""
+    lib = _libcuda()
+    if lib is None:
+        return None
+    status, ident, graph = ctypes.c_int(), ctypes.c_uint64(), \
+        ctypes.c_void_p()
+    err = lib.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status),
+        ctypes.byref(ident), ctypes.byref(graph), None, None)
+    if err != 0 or status.value != 1:           # CU_STREAM_CAPTURE_ACTIVE
+        return None
+    n = ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        return None
+    return list(nodes)[:n.value]
+
+
+def _node_kinds(nodes: list) -> list | None:
+    """Each node's traced kind (None for a node a profiler does not see)."""
+    lib, kind = _libcuda(), ctypes.c_int()
+    out = []
+    for node in nodes:
+        if lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                  ctypes.byref(kind)) != 0:
+            return None
+        out.append(_TRACED.get(kind.value))
+    return out
+
+
+def _record_map(name: str, rec: profiling.Recording, nodes: list | None):
+    """Keep the node map of the graph captured under ``rec`` (its nodes
+    ``nodes`` at the capture's end) as ``name``'s."""
+    kinds = None if nodes is None else _node_kinds(nodes)
+    paths = None if kinds is None else rec.paths(len(kinds))
+    if paths is None:
+        return
+    traced = [(k, p) for k, p in zip(kinds[rec.marks[0][0]:], paths)
+              if k is not None]
+    _NODE_MAPS[name] = NodeMap(tuple(k for k, _ in traced),
+                               tuple(p for _, p in traced))
 
 
 def _source_hash(root: Path | None = None) -> str:
@@ -215,6 +342,8 @@ class _Graphed:
         self.dev = leaves[0].device
         self.pool, self.verbose = pool, verbose
         self.graph = None
+        self.delta: dict = {}       # what a replay adds to the counters
+        self.replay_span = f"{name.split('|')[0]}.replay.{next(_GRAPH_IDS)}"
 
     def _check(self, leaves, spec):
         got = [(tuple(t.shape), t.dtype) for t in leaves]
@@ -240,14 +369,23 @@ class _Graphed:
         cur.wait_stream(s)
         _EPOCH[0] += 1
         graph = torch.cuda.CUDAGraph()
+
+        def n_nodes():
+            nodes = _capture_nodes(s)
+            return None if nodes is None else len(nodes)
+
         with torch.cuda.graph(graph, pool=self.pool, stream=s,
                               capture_error_mode="thread_local"):
-            out = self.fn(*args)
+            with profiling.recording(n_nodes) as rec:
+                out = self.fn(*args)
+            nodes = _capture_nodes(s)
         self.static_out, self.out_spec = flatten(out)
         self.graph = graph
+        self.delta = rec.delta
+        _record_map(self.replay_span, rec, nodes)
         dt = time.perf_counter() - t0
-        STATS.captures += 1
-        STATS.capture_s += dt
+        profiling.count("capture.captures")
+        profiling.count("capture.seconds", dt)
         if self.verbose:
             print(f"# aot_cache: captured {self.name} in {dt:.3f} s",
                   file=sys.stderr)
@@ -262,8 +400,10 @@ class _Graphed:
         else:
             for dst, src in zip(self.static_in, leaves):
                 dst.copy_(src)
-        self.graph.replay()
-        STATS.replays += 1
+        with profiling.span(self.replay_span):
+            self.graph.replay()
+        profiling.replayed(self.delta)
+        profiling.count("capture.replays")
         # Another replay overwrites the static outputs: hand out copies.
         return unflatten(self.out_spec, [t.clone() for t in self.static_out])
 
