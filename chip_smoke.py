@@ -5,9 +5,10 @@ Phases, each of which must pass:
 1. the card: its name and power limit, the torch/CUDA versions and the
    TF32 settings (all off);
 2. build the hand-written kernels ``csrc/admm_block_chunk.cu``,
-   ``csrc/admm_dense_chunk.cu``, ``csrc/convex_narrowphase.cu`` and
-   ``csrc/primitive_narrowphase.cu`` with nvcc, all at once (``-Xptxas
-   -v``: registers and spills, one line an instantiation);
+   ``csrc/admm_dense_chunk.cu``, ``csrc/convex_narrowphase.cu``,
+   ``csrc/primitive_narrowphase.cu`` and ``csrc/ns_refresh.cu`` with nvcc,
+   all at once (``-Xptxas -v``: registers and spills, one line an
+   instantiation);
 3. hold the block kernel against its plain PyTorch version at the
    flagship QP shapes (T 30, D 8, K 2, R 40, B 256, 150 iterations), on
    seeded data with hard, penalty and inert padded rows and one lane with
@@ -37,6 +38,19 @@ Phases, each of which must pass:
    too; one kernel launch a group): the queries whose d or J differ
    beyond tolerance and the largest differences; time both on the
    largest call and compute the bound;
+4d. the Newton-Schulz refresh's kernels on the flagship's second refresh
+   at the benchmark cell's batch (B = 512, n 240; the solve is stopped
+   there): kernel route, plain version and the torch.matmul loop they
+   replaced, each lane's residual within tol; the kernels against the
+   plain version: the same lanes rescued, per-lane iterations equal (one
+   apart only where the earlier stop lies within float32 rounding of tol)
+   and X within 1e-5 of max |X| where they are; launches, host reads and
+   the lanes' share of the launched iterations a refresh; each route's
+   time a refresh, each kernel's time a launch with every lane active, the
+   update's rate against cuBLAS at the same shapes, and the bound.  The
+   path phases (6-9, 11a) read the refresh's kernel launches (required)
+   and host reads over their measured solve: one read a refresh and one a
+   rescue group (:func:`hold_refresh`);
 5. small problems (10 steps, 3 lanes) on the card (float32, kernels,
    the primitive narrowphase included) against the CPU (plain versions):
    for pr2ish one QP step (convexify, prepare, 450 ADMM iterations)
@@ -169,6 +183,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+Phases 1, 2 (its own kernel only) and 4d alone:
+
+    python3 chip_smoke.py ns_refresh
+
 The verifier alone on the card (the flagship solved on 100 lanes, 30 %
 on borderline goals, then certified; ``BENCH_LVS`` sets the LVS
 sub-steps):
@@ -239,10 +257,12 @@ from trajopt_tpu_torch.problem.mpc import make_mpc_step
 from trajopt_tpu_torch.problem.trajectory import (TrajOptProblem,
                                                   interpolated_init)
 from trajopt_tpu_torch.qp import admm as dense
+from trajopt_tpu_torch.qp import admm_block
 from trajopt_tpu_torch.qp import block_banded as bb
 from trajopt_tpu_torch.qp import fused_block as fb
 from trajopt_tpu_torch.qp import fused_dense as fd
 from trajopt_tpu_torch.qp.admm import ADMMConfig
+from trajopt_tpu_torch.qp import inverse as inv
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse
 from trajopt_tpu_torch.qp.admm_block import (chunk_operands,
                                              prepare_qp_block,
@@ -280,6 +300,8 @@ DENSE_LAUNCHES = "qp.dense_chunk.launches"
 CONVEX_LAUNCHES = "collision.convex.launches"
 PRIMITIVE_LAUNCHES = "collision.primitive.launches"
 PRIMITIVE_KERNELS = "collision.primitive.kernels"
+NS_LAUNCHES = "qp.ns.launches"
+NS_READS = "host.syncs.qp.ns"
 
 T, D, K, R, B, N_ITERS = 30, 8, 2, 40, 256, 150
 # Kernel vs plain version, both float32 on the same inputs: they sum in
@@ -307,6 +329,14 @@ SOLVE_XTOL = 1e-4
 # Draws of 1e-6 changes of the inits over which the CPU's own float32
 # range is taken for phase 5's small solves (:func:`hold_in_cpu_range`).
 SMALL_PERTURBATIONS = 6
+# The Newton-Schulz refresh's kernels against its plain version (phase
+# 4d), both float32 on the same system and seed: their norms sum in
+# another order, so a lane may stop one iteration apart where the earlier
+# stop's residual lies within NS_TOL_ROUNDING of tol, on at most 2 % of the
+# lanes; where the counts are equal, X within NS_XTOL of max |X| (the
+# routes read ~5e-7 of it at B 512, so 1e-5 flags a wrong update or stop).
+NS_TOL_ROUNDING = 1e-2
+NS_XTOL = 1e-5
 MIN_VERIFIED = 243          # of 256 lanes: 95 %
 # The arm7 discrete workload: B = 128 lanes of 30 steps; n = 210 variables,
 # m = 449 dense QP rows (232 collision, 7 goal, 210 box).
@@ -428,11 +458,10 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build():
-    """The four kernels at once, one nvcc each (``-Xptxas -v``: registers,
-    shared memory and spills of each)."""
+def phase_build(mods=(fb, fd, fc, fp, inv)):
+    """The five kernel sources at once, one nvcc each (``-Xptxas -v``:
+    registers, shared memory and spills of each)."""
     t0 = time.time()
-    mods = (fb, fd, fc, fp)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         list(pool.map(lambda mod: mod.build(verbose=True), mods))
     print(f"built {', '.join(m.SOURCE.name for m in mods)} for sm_90a in "
@@ -1063,6 +1092,273 @@ def phase_primitive_kernel_check(dev) -> dict:
             "library_ms": None}
 
 
+class _StopRefresh(Exception):
+    """Stops a solve at a Newton-Schulz refresh."""
+
+
+def flagship_refresh(lanes: int, dev, which: int = 1):
+    """(M, seed, band) of the flagship's Newton-Schulz refresh number
+    ``which`` (from 0) on ``lanes`` seeded lanes (30 steps, LVS 2,
+    float32): the system of an SQP step and the inverse carried from the
+    step before; the solve then stops.  The first refresh's seed is the
+    Cholesky inverse of the same system (one iteration), so the default is
+    the second: the step's move changed M."""
+    prob, _ = pr2ish_table_problem(n_steps=30, lvs_substeps=2, device=dev)
+    solve = prob.make_solve(flagship_params(), structured=True)
+    inits, goals = pr2ish_table_batch(0, lanes, 30, device=dev)
+    got, real = [], admm_block.ns_inverse
+
+    def probe(M, X0, **kw):
+        got.append((M.clone(), X0.clone(), kw["band"]))
+        if len(got) > which:
+            raise _StopRefresh
+        return real(M, X0, **kw)
+
+    admm_block.ns_inverse = probe
+    try:
+        solve(inits, {"goal": goals})
+    except _StopRefresh:
+        pass
+    finally:
+        admm_block.ns_inverse = real
+    return got[which]
+
+
+def library_ns_inverse(M, X0, *, tol, max_iter, power_iters, band=None,
+                       target=1.8):
+    """The refresh as the port ran it before its kernels (the yardstick,
+    which the port no longer calls): torch.matmul for ``M @ X`` and ``X @
+    E``, eager elementwise passes, a host read every iteration."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+
+    def loop(X, r, k, tol, budget):
+        active = (r > tol) & (k < budget)
+        while bool(active.any()):
+            E = eye - M @ X
+            r_new = torch.linalg.matrix_norm(E)
+            X = torch.where(active[:, None, None], X + X @ E, X)
+            r = torch.where(active, r_new, r)
+            k = k + active.to(k.dtype)
+            active = (r > tol) & (k < budget)
+        return X
+
+    B = M.shape[0]
+    lam = inv._lam_max_estimate(M, X0, power_iters)
+    margin = 1.1 if power_iters >= 8 else 1.2 + 0.8 / max(power_iters, 1)
+    X = torch.minimum(M.new_ones(()), target / (margin * lam))[:, None,
+                                                                None] * X0
+    zeros = torch.zeros(B, dtype=torch.int32, device=M.device)
+    X = loop(X, M.new_full((B,), float("inf")), zeros, tol, max_iter)
+    r = torch.linalg.matrix_norm(eye - M @ X)
+    bad = ~torch.isfinite(r) | (r > 1.0)
+    X_safe = (target / (torch.linalg.matrix_norm(M) + 1e-30))[:, None,
+                                                              None] * eye
+    X = torch.where(bad[:, None, None], X_safe, X)
+    r0 = torch.where(bad, torch.full_like(r, float("inf")),
+                     torch.zeros_like(r))
+    return loop(X, r0, zeros, tol, 4 * max_iter)
+
+
+@contextlib.contextmanager
+def ns_states():
+    """Record each Newton-Schulz refresh's state (kernel route or plain
+    version) as it is made, with every lane's residual and iterations at
+    the end of its phases, before the rescue test (a rescue restarts the
+    counts), and the lanes that test sends to the rescue."""
+    made, real = [], (inv._Card, inv._Plain)
+
+    def probe(cls):
+        class Probe(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+            def residual(self, tol, budget, mode):
+                if mode == inv.FINAL:
+                    self.r_stop = self.r.clone()
+                    self.kt_stop = ns_lane_iters(self).clone()
+                super().residual(tol, budget, mode)
+                if mode == inv.FINAL:
+                    self.bad_stop = self.bad().clone()
+        return Probe
+
+    inv._Card, inv._Plain = (probe(c) for c in real)
+    try:
+        yield made
+    finally:
+        inv._Card, inv._Plain = real
+
+
+def ns_lane_iters(state) -> torch.Tensor:
+    """A refresh state's per-lane iterations since its last (re)start."""
+    return state.st[:, inv.S_KT] if hasattr(state, "st") else state.kt
+
+
+def hold_ns(label: str, card, plain, X_k, X_p, tol: float) -> tuple:
+    """The kernels' refresh (state ``card``, result ``X_k``) against the
+    plain version's on the same system and seed: the same lanes rescued;
+    each lane's iterations at the end of its phases, and a rescued lane's
+    in the rescue, equal, or one apart where the earlier stop's residual
+    lies within NS_TOL_ROUNDING of tol, on at most 2 % of the lanes; X
+    within NS_XTOL of max |X| on the lanes whose counts are equal.
+    Returns (lanes whose counts differ, max |X_k - X_p| on the others)."""
+    B = X_p.shape[0]
+    if not torch.equal(card.bad_stop, plain.bad_stop):
+        raise SystemExit(f"{label}: the kernels rescue lanes "
+                         f"{torch.nonzero(card.bad_stop).flatten().tolist()}"
+                         f", the plain version lanes "
+                         f"{torch.nonzero(plain.bad_stop).flatten().tolist()}")
+    rescued = card.bad_stop
+    diff = torch.zeros(B, dtype=torch.bool, device=X_p.device)
+    for what, k_k, k_p, r_k, r_p, lanes in (
+            ("at the end of the phases", card.kt_stop, plain.kt_stop,
+             card.r_stop, plain.r_stop, torch.ones_like(rescued)),
+            ("in the rescue", ns_lane_iters(card), ns_lane_iters(plain),
+             card.r, plain.r, rescued)):
+        d = (k_k != k_p) & lanes
+        early = torch.where(k_k < k_p, r_k, r_p)
+        near = ((k_k - k_p).abs() == 1) \
+            & ((early / tol - 1).abs() <= NS_TOL_ROUNDING)
+        if bool((d & ~near).any()):
+            at = torch.nonzero(d & ~near).flatten()[:8]
+            raise SystemExit(
+                f"{label}: per-lane iterations {what} differ beyond "
+                f"float32 rounding of tol on lanes {at.tolist()}: kernels "
+                f"{k_k[at].tolist()}, plain {k_p[at].tolist()}, residuals "
+                f"{r_k[at].tolist()} / {r_p[at].tolist()} (tol {tol:g})")
+        diff |= d
+    n_diff = int(diff.sum())
+    same = ~diff
+    scale = float(X_p.abs().max())
+    err = float((X_k - X_p)[same].abs().max())
+    print(f"{label}: kernels against plain: {int(rescued.sum())} lane(s) "
+          f"rescued on both; per-lane iterations differ (by one, within "
+          f"rounding of tol) on {n_diff}/{B} lanes (limit "
+          f"{max(1, B // 50)}); max |kernels - plain| on the others "
+          f"{err:.3e} of max |X| {scale:.3e} (limit {NS_XTOL:g} of it)")
+    if n_diff > max(1, B // 50):
+        raise SystemExit(f"{label}: per-lane iterations differ on {n_diff}"
+                         f"/{B} lanes")
+    if not err <= NS_XTOL * scale:
+        raise SystemExit(f"{label}: kernels and plain version differ by "
+                         f"{err:.3e} where their counts are equal")
+    return n_diff, err
+
+
+def hold_refresh(label: str, cfg: ADMMConfig, into: dict, key: str) -> None:
+    """The Newton-Schulz refresh over a path's measured solve (the registry
+    set to 0 just before; ``cfg`` the path's QP settings): its kernels'
+    launches (required) and host reads, and the refreshes and rescue
+    groups they imply -- a refresh launches 2 ns_max_iter a phase and the
+    final residual and reads once, a rescue group launches 2 ns_max_iter
+    and reads once, so one read a refresh that rescues no lane; the lanes'
+    iterations a refresh.  Stored in ``into`` under ``key`` + launches,
+    host_reads, refreshes."""
+    got = profiling.counters()
+    launches, reads = got.get(NS_LAUNCHES, 0), got.get(NS_READS, 0)
+    group = 2 * cfg.ns_max_iter
+    refresh = group * (1 + cfg.ns_coarse) + 1
+    n_ref, rest = divmod(launches - group * reads, refresh - group)
+    groups = reads - n_ref
+    iters = got.get("qp.ns.lane_iters", 0) / max(
+        got.get("qp.ns.lane_refreshes", 0), 1)
+    print(f"{label}: Newton-Schulz refresh kernels launched {launches} "
+          f"times with {reads} host read(s): {n_ref} refreshes and {groups} "
+          f"rescue group(s); {iters:.2f} iterations a lane-refresh")
+    if launches <= 0:
+        raise SystemExit(f"{label}: the solve never launched the "
+                         f"Newton-Schulz refresh kernels")
+    if rest or n_ref < 1 or groups < 0:
+        raise SystemExit(f"{label}: {launches} refresh launches and {reads} "
+                         f"reads are no whole count of refreshes at one "
+                         f"read each and rescue groups")
+    into.update({f"{key}launches": launches, f"{key}host_reads": reads,
+                 f"{key}refreshes": n_ref})
+
+
+def phase_ns_refresh_check(dev) -> dict:
+    """The Newton-Schulz refresh's kernels on the flagship's second
+    refresh at the benchmark cell's batch (B = 512, n 240): kernel route, plain
+    version and the torch.matmul loop it replaced, each held by its
+    residual ||I - M X||_F in float64, and the kernels against the plain
+    version (:func:`hold_ns`); launches, host reads and the lanes'
+    share of the launched iterations over one refresh; each route's time a
+    refresh; each kernel's time a launch with every lane active, the
+    update's rate beside cuBLAS's (torch.bmm, the same shapes) and the
+    iteration's bound."""
+    M, X0, band = flagship_refresh(512, dev)
+    cfg = flagship_params().qp
+    kw = dict(tol=cfg.ns_tol, max_iter=cfg.ns_max_iter,
+              power_iters=cfg.ns_power_iters, band=band)
+    B, n = M.shape[0], M.shape[-1]
+    D, hb = band
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+
+    def resid(X):
+        return torch.linalg.matrix_norm(eye - M.double() @ X.double())
+
+    profiling.reset()
+    with ns_states() as made:
+        X_k = inv.ns_inverse(M, X0, **kw)
+        got = profiling.counters()
+        X_p = inv.ns_inverse_plain(M, X0, **kw)
+    X_l = library_ns_inverse(M, X0, **kw)
+    torch.cuda.synchronize()
+    for name, X in (("kernels", X_k), ("plain", X_p), ("torch.matmul", X_l)):
+        r = resid(X)
+        print(f"ns refresh {name}: ||I - M X||_F (float64) max "
+              f"{float(r.max()):.3e}, median {float(r.median()):.3e} "
+              f"(tol {cfg.ns_tol:g})")
+        if not bool((r <= cfg.ns_tol).all()):
+            raise SystemExit(f"ns refresh {name}: a lane is not within tol")
+    n_diff, err = hold_ns("ns refresh", *made, X_k, X_p, cfg.ns_tol)
+    launches = got[NS_LAUNCHES]
+    share = got["qp.ns.lane_iters"] / got["qp.ns.lane_slots"]
+    iters = got["qp.ns.lane_iters"] / got["qp.ns.lane_refreshes"]
+    print(f"ns refresh: {launches} launches and {got[NS_READS]} "
+          f"host read(s) a refresh; {iters:.2f} iterations a lane, "
+          f"{share:.2%} of the launched lane-iterations")
+    ms = cuda_ms(lambda: inv.ns_inverse(M, X0, **kw), 5)
+    plain_ms = cuda_ms(lambda: inv.ns_inverse_plain(M, X0, **kw), 3)
+    library_ms = cuda_ms(lambda: library_ns_inverse(M, X0, **kw), 3)
+
+    card = inv._Card(M, X0, M.new_ones(B), band)
+    card.X[1].copy_(card.X[0])
+    res_ms = cuda_ms(lambda: card.residual(cfg.ns_tol, 1 << 30, inv.START),
+                     20)
+    card.st[:, inv.S_UPD] = 1
+    upd_ms = cuda_ms(card.update, 20)
+    gemm_ms = cuda_ms(lambda: torch.bmm(card.X[0], card.E), 20)
+    gemm_flops = 2 * n ** 3 * B
+    flops = B * (2 * n ** 3 + 2 * n * n * (2 * hb + 1) * D)
+    nbytes = 4 * B * (5 * n * n + n * (2 * hb + 1) * D)
+    bound_ms, bound_by, t_ops, t_bytes = bound(flops, nbytes)
+    lane_ms = (2 * n ** 3 + 2 * n * n * (2 * hb + 1) * D) \
+        / PEAK_FP32_FLOPS * 1e3
+    refresh_bound = got["qp.ns.lane_iters"] * lane_ms
+    print(f"ns refresh a refresh: kernels {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch.matmul loop {library_ms:.4f} ms; bound "
+          f"{refresh_bound:.4f} ms (the lanes' {got['qp.ns.lane_iters']} "
+          f"iterations at the fp32 peak)")
+    print(f"ns refresh a launch, all {B} lanes active: ns_residual "
+          f"{res_ms:.4f} ms, ns_update {upd_ms:.4f} ms "
+          f"({gemm_flops / upd_ms / 1e9:.2f} TFLOP/s) against cuBLAS "
+          f"(torch.bmm) {gemm_ms:.4f} ms ({gemm_flops / gemm_ms / 1e9:.2f} "
+          f"TFLOP/s): {gemm_ms / upd_ms:.2%} of its rate; an iteration's "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP "
+          f"-> {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms), "
+          f"{bound_ms / (res_ms + upd_ms):.2%} of it")
+    return {"name": "ns_refresh", "route": "cuda",
+            "source": "trajopt_tpu_torch/csrc/ns_refresh.cu",
+            "replaces": "trajopt_tpu/qp/inverse.py ns_inverse (XLA GEMMs)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "launches": launches,
+            "refresh_launches": launches, "count_diff_lanes": n_diff,
+            "lane_iter_share": share, "residual_ms": res_ms,
+            "update_ms": upd_ms, "gemm_ms": gemm_ms,
+            "bound_ms": refresh_bound, "bound_by": "operations"}
+
+
 def small_qp_step(dev) -> torch.Tensor:
     """The first QP of pr2ish (10 steps, 3 lanes) on ``dev``, run for all
     450 ADMM iterations (eps 0).  Returns the QP solutions [3, 80]."""
@@ -1571,7 +1867,7 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
                n_dof: int, counter, kernel: str, smi: str,
                min_verified: int | None, profile: bool = True,
                n_hard: int = 0, after=None,
-               traced: dict | None = None) -> int:
+               traced: dict | None = None, ns: tuple | None = None) -> int:
     """A warm-up solve of the measured batch (so that it meets every lane
     bucket the measured solve captures; the captures it makes are
     printed), then the measured solve of ``B`` seeded lanes with the
@@ -1584,8 +1880,9 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
     counts; with ``after`` a call ``after(res, stats)`` on
     the measured solve's result and its (captures, capture seconds,
     replays) before the repeats; with ``traced`` a dict that takes the
-    profiled repeat's narrowphase kernel launches (:func:`profile_solve`).
-    Fails below ``min_verified`` converged and swept-verified lanes or
+    profiled repeat's narrowphase kernel launches (:func:`profile_solve`);
+    with ``ns = (cfg, into, key)`` the Newton-Schulz refresh's counts over
+    the measured solve (:func:`hold_refresh`).  Fails below ``min_verified`` converged and swept-verified lanes or
     when the kernel never launched.  Returns the launch count."""
     inits, goals = batch(1, B, n_steps)
     aot_cache.STATS.reset()
@@ -1605,6 +1902,8 @@ def drive_path(label: str, solve, scene, batch, B: int, n_steps: int,
     launches = _count(counter)
     stats = (aot_cache.STATS.captures, aot_cache.STATS.capture_s,
              aot_cache.STATS.replays)
+    if ns is not None:
+        hold_refresh(label, *ns)
 
     if tuple(res.x.shape) != (B, n_steps * n_dof) or \
             not bool(torch.isfinite(res.x).all()):
@@ -1748,14 +2047,16 @@ def plain_primitive():
         fp.query = saved
 
 
-def phase_flagship(smi: str) -> tuple[int, int, int]:
+def phase_flagship(smi: str, ns: dict) -> tuple[int, int, int]:
     """The flagship (see the module doc, phase 6).  The primitive kernel
     runs inside the captured regions (init, convexify, evaluate), where
     its wrapper is called while a region is warmed up and captured, not
     when it is replayed: its launches are counted over the path's first
     solve (which makes the captures) and traced by name in the profiled
-    repeats.  Returns (block kernel launches of the measured solve,
-    primitive kernel launches and query calls of the first solve)."""
+    repeats.  The Newton-Schulz refresh's counts over the measured solve go
+    to ``ns`` (launches, host_reads, refreshes).  Returns (block kernel
+    launches of the measured solve, primitive kernel launches and query
+    calls of the first solve)."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
     solve = prob.make_solve(flagship_params(), structured=True)
     inits, goals = pr2ish_table_batch(1, B, 30)
@@ -1860,7 +2161,8 @@ def phase_flagship(smi: str) -> tuple[int, int, int]:
     traced = {}
     block = drive_path("flagship", solve, scene, pr2ish_table_batch, B, 30,
                        8, BLOCK_LAUNCHES, "admm_block_chunk_kernel", smi,
-                       MIN_VERIFIED, after=against_plain, traced=traced)
+                       MIN_VERIFIED, after=against_plain, traced=traced,
+                       ns=(flagship_params().qp, ns, ""))
     if traced and traced[fp.KERNEL][0] <= 0:
         raise SystemExit("flagship: no primitive kernel launch traced in "
                          "the captured solve")
@@ -1877,12 +2179,13 @@ def phase_flagship(smi: str) -> tuple[int, int, int]:
     return block, prim, calls
 
 
-def phase_arm7(smi: str) -> tuple[int, int, int]:
+def phase_arm7(smi: str, ns: dict) -> tuple[int, int, int]:
     """The arm7 discrete workload on the dense path (the default entry
     point, ``make_solve`` with ``structured=False``), with the primitive
     kernel's launches by its discrete entries over the path's first solve
     (which makes the captures; required), then on the block path
-    (``bench.py``'s ``discrete_arm7`` line), counts and rate only.  Returns
+    (``bench.py``'s ``discrete_arm7`` line), counts and rate only, with
+    the Newton-Schulz refresh's counts into ``ns`` (arm7_block_).  Returns
     (dense kernel launches of the measured solve, primitive kernel
     launches and query calls of the first solve)."""
     prob, scene = arm_table_problem(n_steps=ARM_STEPS)
@@ -1914,7 +2217,8 @@ def phase_arm7(smi: str) -> tuple[int, int, int]:
     drive_path("arm7 block", prob.make_solve(discrete_params(),
                                              structured=True),
                scene, arm_table_batch, ARM_B, ARM_STEPS, 7, BLOCK_LAUNCHES,
-               "admm_block_chunk_kernel", smi, None, profile=False)
+               "admm_block_chunk_kernel", smi, None, profile=False,
+               ns=(discrete_params().qp, ns, "arm7_block_"))
     return launches, prim, calls
 
 
@@ -1922,9 +2226,10 @@ def hard_batch(seed: int, B: int, n_steps: int):
     return pr2ish_table_batch(seed, B, n_steps, hard_frac=HARD_FRAC)
 
 
-def phase_hard_mix(smi: str) -> int:
+def phase_hard_mix(smi: str, ns: dict) -> int:
     """bench.py's hard-mix line at full size: the flagship with 64 of 256
-    lanes on borderline goals."""
+    lanes on borderline goals; the Newton-Schulz refresh's counts into
+    ``ns`` (hard_mix_)."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
 
     def lanes(res, stats):
@@ -1938,13 +2243,15 @@ def phase_hard_mix(smi: str) -> int:
                                                   structured=True),
                       scene, hard_batch, B, 30, 8, BLOCK_LAUNCHES,
                       "admm_block_chunk_kernel", smi, MIN_VERIFIED,
-                      n_hard=int(np.ceil(HARD_FRAC * B)), after=lanes)
+                      n_hard=int(np.ceil(HARD_FRAC * B)), after=lanes,
+                      ns=(flagship_params().qp, ns, "hard_mix_"))
 
 
-def phase_family(smi: str) -> int:
+def phase_family(smi: str, ns: dict) -> int:
     """The hard mix's measured batch with two restarts, the last one
     re-seeded from the multi-start family (bench.py's
-    BENCH_RESTART_FAMILY line with BENCH_RESTARTS=2), one solve."""
+    BENCH_RESTART_FAMILY line with BENCH_RESTARTS=2), one solve; the
+    Newton-Schulz refresh's counts into ``ns`` (family_)."""
     prob, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
     solve = prob.make_solve(dataclasses.replace(flagship_params(),
                                                 max_restarts=2),
@@ -1958,6 +2265,7 @@ def phase_family(smi: str) -> int:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _count(BLOCK_LAUNCHES)
+    hold_refresh("family", flagship_params().qp, ns, "family_")
     if tuple(res.x.shape) != (B, 240) or not bool(torch.isfinite(res.x).all()):
         raise SystemExit("family: trajectories not finite or of the wrong "
                          "shape")
@@ -2167,16 +2475,17 @@ def unified_problem(device=None):
                                 unify_narrowphase=True, device=device)
 
 
-def phase_unified(smi: str) -> tuple[int, int]:
+def phase_unified(smi: str, ns: dict) -> tuple[int, int]:
     """(a) The flagship under ``unify_narrowphase``: all 91 pairs through
     the convex GJK + SAT narrowphase, B = 256, block path; checked with the
     primitive scene's swept check.  The search kernel runs inside the
     captured regions (init, convexify, evaluate), where its wrapper is
     called while a region is warmed up and captured, not when it is
     replayed: its launches are counted over the path's first solve (which
-    makes the captures) and traced by name in the profiled repeat.
-    Returns (block kernel launches of the measured solve, search kernel
-    launches of the first solve)."""
+    makes the captures) and traced by name in the profiled repeat.  The
+    Newton-Schulz refresh's counts go to ``ns`` (unified_).  Returns
+    (block kernel launches of the measured solve, search kernel launches
+    of the first solve)."""
     prob, uscene = unified_problem()
     _, scene = pr2ish_table_problem(n_steps=30, lvs_substeps=2)
 
@@ -2220,7 +2529,8 @@ def phase_unified(smi: str) -> tuple[int, int]:
                          "launched")
     block = drive_path("unified flagship", solve, scene, pr2ish_table_batch,
                        B, 30, 8, BLOCK_LAUNCHES, "admm_block_chunk_kernel",
-                       smi, MIN_VERIFIED, after=against_primitive)
+                       smi, MIN_VERIFIED, after=against_primitive,
+                       ns=(flagship_params().qp, ns, "unified_"))
     # A replay records no host range inside its graph, so the narrowphase's
     # share of device time is read from an eager profile (the same device
     # work as the captured solve's).
@@ -2955,23 +3265,34 @@ def main() -> int:
         return out
 
     smi = timed("device", phase_device)
+    if sys.argv[1:] == ["ns_refresh"]:
+        timed("build", phase_build, (inv,))
+        ns = timed("ns refresh kernels", phase_ns_refresh_check, dev)
+        print(json.dumps({"kernels": [ns]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     timed("build", phase_build)
     block = timed("block kernel", phase_kernel_check, dev)
     dense_k = timed("dense kernel", phase_dense_kernel_check, dev)
     convex = timed("convex kernel", phase_convex_kernel_check, dev)
     prim = timed("primitive kernel", phase_primitive_kernel_check, dev)
+    ns = timed("ns refresh kernels", phase_ns_refresh_check, dev)
     timed("small references", phase_small_reference)
     # the primitive kernel launches once a group: its "launches" count
-    # kernel launches, its "query_calls" the wrapper's calls
+    # kernel launches, its "query_calls" the wrapper's calls; the refresh's
+    # "launches" are the flagship's measured solve's (phase 4d's one
+    # refresh: "refresh_launches")
     block["launches"], prim["launches"], prim["query_calls"] = timed(
-        "flagship", phase_flagship, smi)
+        "flagship", phase_flagship, smi, ns)
     (dense_k["launches"], prim["arm7_dense_launches"],
-     prim["arm7_dense_query_calls"]) = timed("arm7", phase_arm7, smi)
-    block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi)
-    block["family_launches"] = timed("family", phase_family, smi)
+     prim["arm7_dense_query_calls"]) = timed("arm7", phase_arm7, smi, ns)
+    block["hard_mix_launches"] = timed("hard mix", phase_hard_mix, smi, ns)
+    block["family_launches"] = timed("family", phase_family, smi, ns)
     dense_k.update(timed("json front end", phase_json, smi))
     block["unified_launches"], convex["launches"] = timed(
-        "unified flagship", phase_unified, smi)
+        "unified flagship", phase_unified, smi, ns)
     timed("unified narrowphase float64", phase_unified_f64)
     (dense_k["collision_scene_launches"],
      convex["collision_scene_launches"]) = timed("collision scenes",
@@ -2983,7 +3304,7 @@ def main() -> int:
                                  dense_k["json_max_abs_err"],
                                  dense_k["ifopt_max_abs_err"])
     print(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [block, dense_k, convex, prim]}))
+    print(json.dumps({"kernels": [block, dense_k, convex, prim, ns]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

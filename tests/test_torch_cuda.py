@@ -1,9 +1,11 @@
 """Port on the card: the hand-written chunk kernels (block and dense), the
-convex search kernel and the primitive narrowphase kernel against their
-plain versions, the wrappers' checks and launch counts, a small solve of
-each QP path (and a swept problem on the dense path), the convex
-narrowphase and an SDF grid's queries against the CPU, and captured
-regions against eager runs.
+convex search kernel, the primitive narrowphase kernel and the
+Newton-Schulz refresh kernels against their plain versions, the wrappers'
+checks and launch counts, a small solve of each QP path (and a swept
+problem on the dense path), the flagship's refreshes and solves with the
+refresh's kernels against its plain version, the convex narrowphase and
+an SDF grid's queries against the CPU, and captured regions against eager
+runs.
 
 The narrowphase kernels are also held on ragged query counts, shapes
 outside the convex kernel's compile-time set, and a primitive call of
@@ -28,9 +30,11 @@ from trajopt_tpu_torch.models.benchmarks import (arm_table_batch,
                                                  flagship_params,
                                                  pr2ish_table_batch,
                                                  pr2ish_table_problem)
+from trajopt_tpu_torch.qp import admm_block
 from trajopt_tpu_torch.qp import block_banded as bb
 from trajopt_tpu_torch.qp import fused_block as fb
 from trajopt_tpu_torch.qp import fused_dense as fd
+from trajopt_tpu_torch.qp import inverse as inv
 from trajopt_tpu_torch.qp.inverse import cholesky_inverse
 from trajopt_tpu_torch.qp.admm import ADMMConfig
 from trajopt_tpu_torch.sqp.params import SQPParams, SQPStatus
@@ -1241,3 +1245,246 @@ def test_captured_primitive_narrowphase_equals_eager(cuda):
     assert aot_cache.STATS.replays >= 2
     # two replays and two eager runs
     assert _count("collision.primitive.launches") == captured_at + 4
+
+
+# (B, T, D) of the Newton-Schulz refresh's tests: the flagship's QP shape
+# at the benchmark cell's batch, and an odd shape (n = 91: no multiple of
+# 4, steps of 7 rows straddling the residual kernel's 8-row tiles).
+NS_SHAPES = {"flagship": (512, 30, 8), "odd": (7, 13, 7)}
+
+
+def _ns_system(shape, dtype, dev, seed=0):
+    """Seeded block-tridiagonal SPD systems M = I + sum of 4-row windows
+    over K = 2 steps (eigenvalues in about [1, 11]) and seeds X0, the
+    inverses of perturbed systems, the perturbation growing across lanes
+    (so lanes stop apart); lane 3's seed is NaN (it takes the rescue).
+    Returns (M, X0, band)."""
+    B, T, D = NS_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    n, KD = T * D, 2 * D
+
+    def windows(scale):
+        W = rng.standard_normal((B, T - 1, 4, KD)) * scale
+        out = np.zeros((B, n, n))
+        for t in range(T - 1):
+            out[:, t * D:t * D + KD, t * D:t * D + KD] += np.einsum(
+                "brk,brl->bkl", W[:, t], W[:, t])
+        return out
+
+    M = np.eye(n) + windows(0.4)
+    X0 = np.linalg.inv(M + windows(1.0)
+                       * np.linspace(0.001, 0.1, B)[:, None, None])
+    X0[3] = np.nan
+    return (torch.as_tensor(M, dtype=dtype, device=dev).contiguous(),
+            torch.as_tensor(X0, dtype=dtype, device=dev).contiguous(),
+            (D, 1))
+
+
+def _ns_states(monkeypatch):
+    """Record each refresh's state (kernel or plain route) with every
+    lane's residual and iterations at its stop, before the final residual
+    (a rescue restarts the iteration counts)."""
+    made = []
+
+    def probe(cls):
+        class Probe(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+            def residual(self, tol, budget, mode):
+                if mode == inv.FINAL and not hasattr(self, "r_stop"):
+                    self.r_stop = self.r.clone().cpu()
+                    kt = self.st[:, inv.S_KT] if isinstance(
+                        self, inv._Card) else self.kt
+                    self.kt_stop = kt.long().cpu()
+                super().residual(tol, budget, mode)
+        return Probe
+
+    monkeypatch.setattr(inv, "_Card", probe(inv._Card))
+    monkeypatch.setattr(inv, "_Plain", probe(inv._Plain))
+    return made
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", sorted(NS_SHAPES))
+def test_ns_kernels_match_plain_version(cuda, monkeypatch, shape, dtype):
+    """The kernels (``ns_residual``, ``ns_update``) against the plain
+    version on the card: per-lane iteration counts equal, in float32 except
+    on a lane whose residual at the earlier stop lies within rounding of
+    tol (1 % of it); X equal to rounding where the counts are; every lane
+    that stopped on its test, the rescued one included, within tol in
+    float64 arithmetic."""
+    M, X0, band = _ns_system(shape, dtype, cuda)
+    f32 = dtype == torch.float32
+    tol = 1e-4 if f32 else 1e-10
+    kw = dict(tol=tol, max_iter=25, power_iters=4, band=band)
+    made = _ns_states(monkeypatch)
+    before = _count("qp.ns.launches")
+    X_k = inv.ns_inverse(M, X0, **kw)
+    X_p = inv.ns_inverse_plain(M, X0, **kw)
+    torch.cuda.synchronize()
+    card, plain = made
+    assert isinstance(card, inv._Card) and isinstance(plain, inv._Plain)
+    # 25 iterations of two launches and the final residual, then the rescue
+    assert _count("qp.ns.launches") - before >= 51
+    kt_k, kt_p = card.kt_stop, plain.kt_stop
+    B = M.shape[0]
+    lanes = torch.arange(B) != 3
+    diff = (kt_k != kt_p) & lanes
+    if f32:
+        early = torch.where(kt_k < kt_p, card.r_stop, plain.r_stop)
+        assert ((kt_k - kt_p).abs()[diff] == 1).all()
+        assert ((early[diff] / tol - 1).abs() <= 1e-2).all()
+        assert int(diff.sum()) <= max(1, B // 50)
+    else:
+        assert not diff.any()
+    assert int(kt_k.min()) < int(kt_k[lanes].max()) < 25   # lanes stop apart
+    # the rescued lane's iterations, from its restart
+    rescue_k = int(card.st[3, inv.S_KT])
+    assert rescue_k > 0 and (rescue_k == int(plain.kt[3]) or f32)
+    same = (~diff).to(cuda)
+    scale = float(X_p.abs().max())
+    assert float((X_k - X_p)[same].abs().max()) <= (1e-4 if f32 else 1e-9) \
+        * scale
+    assert torch.isfinite(X_k).all()
+    Md, Xd = M.double(), X_k.double()
+    r = torch.linalg.matrix_norm(torch.eye(M.shape[-1], dtype=Md.dtype,
+                                           device=cuda) - Md @ Xd).cpu()
+    stopped = kt_k < 25
+    stopped[3] = True
+    assert (r[stopped] <= tol).all()
+    assert stopped.all()
+
+
+def test_flagship_refresh_runs_the_kernels(cuda, monkeypatch):
+    """A 6-step flagship solve (float32, 8 lanes): every refresh launches
+    the kernels with one host read and none takes the plain route."""
+    plain, calls, real = [], [], admm_block.ns_inverse
+
+    class NoPlain(inv._Plain):
+        def __init__(self, *a, **kw):
+            plain.append(1)
+            super().__init__(*a, **kw)
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(inv, "_Plain", NoPlain)
+    monkeypatch.setattr(admm_block, "ns_inverse", counted)
+    prob, _ = pr2ish_table_problem(n_steps=6, lvs_substeps=2)
+    solve = prob.make_solve(flagship_params(), structured=True)
+    inits, goals = pr2ish_table_batch(0, 8, 6)
+    profiling.reset()
+    res = solve(inits, {"goal": goals})
+    got = profiling.counters()
+    assert calls and not plain
+    assert got["qp.ns.launches"] >= 51 * len(calls)
+    assert got["host.syncs.qp.ns"] == len(calls)
+    assert 0 < got["qp.ns.lane_iters"] <= got["qp.ns.lane_slots"]
+    assert (res.status == SQPStatus.CONVERGED).all()
+
+
+def _flagship_solve(dtype, lanes, hard_frac=0.0, perturb=None):
+    """A 10-step flagship solve (LVS 2, the flagship's settings) on
+    ``lanes`` seeded lanes in ``dtype`` (``make_solver``: ``make_solve``
+    solves in float32 on the card); with ``perturb`` every init step after
+    the first moved by a uniform +-1e-6 drawn from that seed."""
+    from trajopt_tpu_torch.sqp.solver import make_solver
+    prob, _ = pr2ish_table_problem(n_steps=10, lvs_substeps=2)
+    inits, goals = pr2ish_table_batch(0, lanes, 10, dtype=dtype,
+                                      hard_frac=hard_frac)
+    if perturb is not None:
+        noise = np.random.default_rng(perturb).uniform(
+            -1e-6, 1e-6, (lanes, 9, inits.shape[-1]))
+        inits = torch.cat([inits[:, :1], inits[:, 1:] + torch.as_tensor(
+            noise, dtype=dtype, device=inits.device)], 1)
+    x0 = inits.reshape(lanes, -1)
+    return make_solver(prob.build(), flagship_params(), structured=True)(
+        x0, *prob.bounds(x0), {"goal": goals})
+
+
+def test_flagship_refreshes_on_kernels_equal_plain(cuda, monkeypatch):
+    """Every refresh of a float64 10-step flagship solve (5 lanes, 2 on
+    borderline goals; the chunk's plain version on the card) run by the
+    kernels and by the plain version on the same system and seed: equal
+    per-lane iterations and X within 1e-10 of its magnitude (the solve goes
+    on with the kernels' X)."""
+    monkeypatch.setattr(fb, "chunk", _plain_chunk)
+    made = _ns_states(monkeypatch)
+    seen = []
+
+    def both(M, X0, **kw):
+        X_k = inv.ns_inverse(M, X0, **kw)
+        X_p = inv.ns_inverse_plain(M, X0, **kw)
+        card, plain = made[-2:]
+        seen.append((torch.equal(card.kt_stop, plain.kt_stop),
+                     float((X_k - X_p).abs().max() / X_p.abs().max())))
+        return X_k
+
+    monkeypatch.setattr(admm_block, "ns_inverse", both)
+    _flagship_solve(torch.float64, 5, hard_frac=0.4)
+    assert len(seen) >= 2
+    assert all(eq for eq, _ in seen), seen
+    assert max(d for _, d in seen) <= 1e-10, seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_flagship_solve_with_kernel_refresh_equals_plain(cuda, monkeypatch,
+                                                         dtype):
+    """A 10-step flagship solve on 8 uniform lanes with the refresh's
+    kernels against the same solve with its plain version, held as
+    chip_smoke.py phase 6 holds a kernel route against its plain one:
+    statuses equal and converged lanes' x within 1e-3 (float64 with the
+    chunk's plain version, which alone takes float64)."""
+    if dtype == torch.float64:
+        monkeypatch.setattr(fb, "chunk", _plain_chunk)
+    before = _count("qp.ns.launches")
+    kernel = _flagship_solve(dtype, 8)
+    assert kernel.x.dtype == dtype
+    assert _count("qp.ns.launches") > before
+    monkeypatch.setattr(admm_block, "ns_inverse", inv.ns_inverse_plain)
+    plain = _flagship_solve(dtype, 8)
+    assert torch.equal(kernel.status, plain.status)
+    conv = kernel.status == SQPStatus.CONVERGED
+    assert conv.any()
+    assert float((kernel.x - plain.x)[conv].abs().max()) <= 1e-3
+
+
+def test_flagship_float32_borderline_lanes_with_kernel_refresh(cuda,
+                                                                monkeypatch):
+    """A float32 10-step flagship solve on 16 lanes, 40 % on borderline
+    goals, with the refresh's kernels against the same solve with its
+    plain version.  The kernel route repeats itself bit for bit, so where
+    the routes part it is the refresh's float32 rounding (its norms and
+    products sum in another order) moving a borderline lane onto another
+    path: statuses equal on every lane; a converged lane with equal SQP
+    iteration and QP counts within 1e-3, or within 4x the plain route's
+    own move under two 1e-6 changes of the inits (a borderline QP stopped
+    at the float32 ADMM's loose tolerance moves that far, as
+    ``chip_smoke.py`` phase 6 holds it); a lane whose counts changed may
+    end elsewhere."""
+    kernel = _flagship_solve(torch.float32, 16, hard_frac=0.4)
+    again = _flagship_solve(torch.float32, 16, hard_frac=0.4)
+    assert torch.equal(kernel.x, again.x)
+    assert torch.equal(kernel.n_iter, again.n_iter)
+    monkeypatch.setattr(admm_block, "ns_inverse", inv.ns_inverse_plain)
+    plain = _flagship_solve(torch.float32, 16, hard_frac=0.4)
+    own = torch.stack([
+        (_flagship_solve(torch.float32, 16, hard_frac=0.4, perturb=k).x
+         - plain.x).abs().amax(-1) for k in range(2)]).amax(0)
+    dx = (kernel.x - plain.x).abs().amax(-1)
+    seen = (f"statuses {kernel.status.tolist()} / {plain.status.tolist()}, "
+            f"SQP iterations {kernel.n_iter.tolist()} / "
+            f"{plain.n_iter.tolist()}, QP solves "
+            f"{kernel.n_qp_solves.tolist()} / {plain.n_qp_solves.tolist()}, "
+            f"|dx| {[f'{v:.2e}' for v in dx.tolist()]}, the plain route's "
+            f"own move {[f'{v:.2e}' for v in own.tolist()]}")
+    assert torch.equal(kernel.status, plain.status), seen
+    same = (kernel.n_iter == plain.n_iter) \
+        & (kernel.n_qp_solves == plain.n_qp_solves) \
+        & (kernel.status == SQPStatus.CONVERGED)
+    assert int(same.sum()) >= 8, seen
+    limit = torch.clamp_min(4.0 * own, 1e-3)
+    assert bool((dx[same] <= limit[same]).all()), seen

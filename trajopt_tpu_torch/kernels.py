@@ -7,9 +7,10 @@ source and flag hash, into ``trajopt_tpu_torch/_build/``) and loaded with
 ``qp/fused_dense.py``, ``collision/fused_convex.py``,
 ``collision/fused_primitive.py``: the fourth kernel, the primitive
 narrowphase of ``csrc/primitive_narrowphase.cu``, whose per-query
-functions live in ``csrc/primitive_narrowphase.cuh``).  The host C++ QP
-(``csrc/qp_admm.cpp``, ``qp/native.py``) and the host build of the
-primitive narrowphase's functions for the CPU tests
+functions live in ``csrc/primitive_narrowphase.cuh``; ``qp/inverse.py``:
+the Newton-Schulz refresh's two kernels of ``csrc/ns_refresh.cu``).  The
+host C++ QP (``csrc/qp_admm.cpp``, ``qp/native.py``) and the host build of
+the primitive narrowphase's functions for the CPU tests
 (``csrc/primitive_host.cpp``) are built the same way with ``g++``.  A
 build is keyed by its source and the local headers it includes.  Nothing
 here runs at import time.

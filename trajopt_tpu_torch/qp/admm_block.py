@@ -133,17 +133,19 @@ def block_system(qp: BlockQP, cfg: ADMMConfig = ADMMConfig()
 
 def invert_block_system(prep: PreparedBlockQP, M: torch.Tensor,
                         cfg: ADMMConfig = ADMMConfig(),
-                        minv0: torch.Tensor | None = None
+                        minv0: torch.Tensor | None = None,
+                        band: tuple[int, int] | None = None
                         ) -> PreparedBlockQP:
     """``prep`` with ``Minv`` the inverse of M: by Cholesky, or with a
-    seed ``minv0`` refreshed by safeguarded Newton-Schulz (whose loop
-    syncs with the host)."""
+    seed ``minv0`` refreshed by safeguarded Newton-Schulz (one host read a
+    refresh on the card; ``band`` = (D, hb) is M's block band,
+    ``inverse.band_mm``, None dense)."""
     if minv0 is None:
         Minv = cholesky_inverse(M)
     else:
         Minv = ns_inverse(M, minv0, tol=cfg.ns_tol, max_iter=cfg.ns_max_iter,
                           power_iters=cfg.ns_power_iters,
-                          coarse=cfg.ns_coarse)
+                          coarse=cfg.ns_coarse, band=band)
     return prep._replace(Minv=Minv)
 
 

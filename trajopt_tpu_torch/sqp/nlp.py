@@ -98,7 +98,10 @@ class TermSet:
     ``banded_jac(x, params) -> W [B, n_rows, band_width]`` with row r
     covering columns ``band_starts[r] ... + band_width``;
     ``val_banded_jac`` returns (residuals, W) from one pass.  ``groups``
-    maps constraint rows to merit units (None -> one unit).
+    maps constraint rows to merit units (None -> one unit).  ``jac_band =
+    (starts, width)`` states the columns each row's Jacobian covers for a
+    squared cost (whose Jacobian is dense): the block QP's Newton-Schulz
+    refresh reads M's band from it (:func:`block_half_band`).
     ``user_code`` marks a set whose callables, though the port's own, call
     a user's function (see :func:`runs_user_code`).
     """
@@ -118,6 +121,7 @@ class TermSet:
     groups: np.ndarray | None = None
     n_groups: int = 1
     user_code: bool = False
+    jac_band: tuple | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -525,6 +529,26 @@ def structured_band(nlp: Nlp) -> tuple[np.ndarray, int]:
     starts = np.concatenate([np.asarray(t.band_starts)
                              for t in structured_sets(nlp)])
     return starts, w
+
+
+def block_half_band(nlp: Nlp, D: int, K: int) -> int | None:
+    """Half-bandwidth, in steps of ``D`` columns, of the block QP's x-update
+    matrix M = P + sigma I + C'RC + diag(rho b^2) (static, from the term
+    sets alone): C'RC couples the K steps of a row window, P the steps one
+    squared cost row spans (its ``jac_band``); a diagonal-Hessian cost
+    couples none.  None (dense) where a squared cost states no columns or
+    a Hessian is full."""
+    hb = K - 1
+    for t in nlp.cost_sets:
+        if t.kind in PENALTY_COST_KINDS or t.kind is Kind.COST_GENERIC_DIAG:
+            continue                # rows of C, or a diagonal
+        if t.kind is not Kind.COST_SQ or t.jac_band is None:
+            return None
+        starts, width = np.asarray(t.jac_band[0]), t.jac_band[1]
+        if starts.size:
+            last = np.minimum(starts + width - 1, nlp.n - 1)
+            hb = max(hb, int((last // D - starts // D).max()))
+    return hb
 
 
 def _band_index(owner, starts, w, n, device) -> torch.Tensor:

@@ -315,6 +315,10 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
         m_qp = num_qp_rows(nlp)
     use_block = plan is not None
     ns_refresh = use_block and cfg.ns_refresh
+    ns_band = None              # M's block band for the refresh (None: dense)
+    if ns_refresh:
+        hb = nlp_mod.block_half_band(nlp, plan.D, plan.K)
+        ns_band = None if hb is None else (plan.D, hb)
 
     graphs, pools = {}, {}
     # A user's term function may copy a host constant to the card, which a
@@ -532,7 +536,8 @@ def make_solver(nlp: Nlp, sqp: SQPParams = SQPParams(), callback=None,
         new_minv = state.minv
         if ns_refresh:
             with span("qp.prepare"):
-                prep = invert_block_system(prep, M, cfg, minv0=state.minv)
+                prep = invert_block_system(prep, M, cfg, minv0=state.minv,
+                                           band=ns_band)
             new_minv = prep.Minv
         ts = trust_loop(state, model, prep, params, lb, ub, B)
         dtype = state.x.dtype

@@ -124,7 +124,8 @@ def joint_term(deriv: str, is_cost: bool, n_steps: int, n_dof: int, *,
                                                (n_dof,)), n_t)
 
             return TermSet(name, Kind.COST_SQ, fn, n_t * n_dof,
-                           weight_fn=weight_fn, linear=True)
+                           weight_fn=weight_fn, linear=True,
+                           jac_band=(base_starts, band_width))
 
         def fn(x, params):
             return (values(x, params) * coeff(params, x)[..., None, :]

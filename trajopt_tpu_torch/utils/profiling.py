@@ -17,9 +17,10 @@ The port's own instrumentation lives here too:
   the graph's nodes (:class:`Recording`), so that a trace reader can hand
   each kernel of a later replay to the span that launched it.
 - :func:`count` adds to the process's counter registry (:func:`counters`,
-  :func:`reset`): kernel launches, queries, ADMM lane iterations, host
-  syncs, captures and replays.  A captured pass adds nothing itself; each
-  replay of its graph adds what the pass counted (:func:`replayed`).
+  :func:`reset`): kernel launches, queries, ADMM and Newton-Schulz lane
+  iterations, host syncs, captures and replays.  A captured pass adds
+  nothing itself; each replay of its graph adds what the pass counted
+  (:func:`replayed`).
 - :func:`host_read` is every blocking device-to-host read of the solve:
   the span ``<layer>.sync.<site>`` around it and the counts ``host.syncs``
   and ``host.syncs.<layer>.<site>``.
